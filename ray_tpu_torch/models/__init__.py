@@ -2,9 +2,9 @@
 
 Counterpart of ``ray_tpu/models/__init__.py``. Each model module exposes a
 frozen ``*Config`` dataclass, ``PRESETS``, ``init_params``, ``forward``,
-``forward_cached``, ``init_kv_cache``, ``count_params`` and
-``flops_per_token``. Only GPT-2 is ported so far; llama waits for its
-slice.
+``forward_cached``, ``init_kv_cache``, ``loss_fn`` (the training loss that
+``train.step`` differentiates), ``count_params`` and ``flops_per_token``.
+Only GPT-2 is ported so far; llama waits for its slice.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""GPT-2 in PyTorch: the model the port serves.
+"""GPT-2 in PyTorch: the model the port serves and trains.
 
 Counterpart of ``ray_tpu/models/gpt2.py`` (dense path): learned positional
 embeddings, pre-LN transformer blocks, tanh-GELU MLP, weight-tied LM head.
@@ -8,12 +8,15 @@ a leading L), so a JAX ``init_params`` tree converts one to one
 (``models/convert.py``). The layer ``scan`` is a Python loop over the
 stacked weights. Activations run in ``config.dtype`` over ``param_dtype``
 parameters, each weight cast to the activation dtype where it is used.
+Training goes through ``loss_fn`` (vocabulary-chunked cross entropy over
+``forward_features``), with each block checkpointed by ``remat_policy``.
 
 The functions take ``params`` as anything indexable by the JAX names: a
 ``GPT2`` module or a nested dict of tensors.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
@@ -21,9 +24,17 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.xent import chunked_softmax_xent
+
+_REMAT_POLICIES = ("dots", "dots_all", "full")
 
 BLOCK_PARAMS = (
     "ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
@@ -42,16 +53,24 @@ class GPT2Config:
     dtype: torch.dtype = torch.bfloat16        # activation dtype
     param_dtype: torch.dtype = torch.float32
     attention_impl: str = "auto"     # auto | xla | flash | flash_interpret
-    # Training and mesh options of the JAX config. Remat has no meaning
-    # without training and is ignored; ring/ulysses and MoE raise.
+    # Activation checkpointing of each block in training (forward_features).
+    # "dots": keep the outputs of the projections (matrix products with no
+    # batch dims) and of the flash forward (out, lse), recompute the
+    # elementwise ops; "dots_all": keep batched products too; "full": keep
+    # only the block's inputs and re-run the whole block, attention forward
+    # included, in the backward.
     remat: bool = True
     remat_policy: str = "dots"
+    # Mesh options of the JAX config: ring/ulysses and MoE raise.
     seq_axis: str = "seq"
     moe: Optional[Any] = None
 
     def __post_init__(self):
         if self.moe is not None:
             raise NotImplementedError("MoE is not ported yet")
+        if self.remat_policy not in _REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
+                             f"one of {_REMAT_POLICIES}")
         if self.attention_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attention_impl={self.attention_impl!r} needs the parallel "
@@ -234,14 +253,55 @@ def _layer(params, i: int) -> Dict[str, torch.Tensor]:
     return {n: blocks[n][i] for n in BLOCK_PARAMS}
 
 
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# batched product -> position of its [batch, n, k] operand
+_BATCHED_DOTS = {torch.ops.aten.bmm.default: 0, torch.ops.aten.baddbmm.default: 1}
+
+
+def _remat_policy(policy: str, ctx, func, *args, **kwargs):
+    """Selective-checkpoint policy of one block (JAX ``_remat_policy``,
+    gpt2.py:159): MUST_SAVE the flash forward's (out, lse), the analog of
+    ``save_only_these_names("flash_out", "flash_lse")``, and the matrix
+    products that the policy keeps. ``torch.einsum`` lowers a projection to
+    ``bmm`` with a batch of 1 and a batched product (the dense attention's)
+    to ``bmm`` with a larger batch: "dots" keeps the first kind
+    (``dots_with_no_batch_dims_saveable``), "dots_all" both
+    (``dots_saveable``)."""
+    if func is torch.ops.ray_tpu_torch.flash_fwd_lse.default:
+        return CheckpointPolicy.MUST_SAVE
+    if func in _NO_BATCH_DOTS or (func in _BATCHED_DOTS and (
+            policy == "dots_all" or args[_BATCHED_DOTS[func]].shape[0] == 1)):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(config: GPT2Config):
+    """``_block`` under the config's activation checkpointing when autograd
+    records (plain ``_block`` with ``remat=False`` or without grad; only the
+    block inputs kept under "full")."""
+    block = functools.partial(_block, config)
+    if not (config.remat and torch.is_grad_enabled()):
+        return block
+    kw = {"use_reentrant": False}
+    if config.remat_policy != "full":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts,
+            functools.partial(_remat_policy, config.remat_policy))
+    return lambda x, layer: checkpoint(block, x, layer, **kw)
+
+
 def forward_features(params, tokens: torch.Tensor, config: GPT2Config):
-    """tokens [B, T] int -> (final-trunk features [B, T, E], aux loss)."""
+    """tokens [B, T] int -> (final-trunk features [B, T, E], aux loss).
+    Under autograd each block runs under ``config.remat``/``remat_policy``;
+    the loss path consumes the features directly (``ops/xent.py``), so the
+    [B, T, V] logits never materialise."""
     B, T = tokens.shape
     x = params["wte"][tokens].to(config.dtype)
     x = x + params["wpe"][:T][None].to(config.dtype)
     aux = 0.0
+    block = _checkpointed(config)
     for i in range(config.num_layers):
-        x, layer_aux = _block(config, x, _layer(params, i))
+        x, layer_aux = block(x, _layer(params, i))
         aux = aux + layer_aux
     x = _layer_norm(x, params["ln_f_g"], params["ln_f_b"])
     return x, aux
@@ -316,6 +376,32 @@ def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
     x = _layer_norm(x, params["ln_f_g"], params["ln_f_b"])
     logits = torch.einsum("bte,ve->btv", x, params["wte"].to(x.dtype))
     return logits.to(torch.float32), cache
+
+
+def loss_fn(params, batch: Dict[str, Any], config: GPT2Config,
+            pipeline_microbatches: Optional[int] = None) -> torch.Tensor:
+    """Next-token cross entropy, an f32 scalar. batch: {"tokens": [B, T+1]}
+    or {"inputs": [B, T], "targets": [B, T]}, with an optional "mask"
+    [B, T] of weights. Tensors or numpy arrays; they move to the params'
+    device. The pipelined path needs the parallel layer, which is not ported
+    yet."""
+    if pipeline_microbatches:
+        raise NotImplementedError(
+            "pipeline_microbatches needs the parallel layer, which is not "
+            "ported yet")
+    dev = params["wte"].device
+
+    def get(name):
+        return torch.as_tensor(batch[name], device=dev)
+
+    if "tokens" in batch:
+        tokens = get("tokens")
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    else:
+        inputs, targets = get("inputs"), get("targets")
+    mask = get("mask") if batch.get("mask") is not None else None
+    x, aux = forward_features(params, inputs, config)
+    return chunked_softmax_xent(x, params["wte"], targets, mask) + aux
 
 
 def count_params(params: nn.Module) -> int:

@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded through ``ctypes``
 (no PyTorch headers, so a build takes seconds). Builds happen at first
 use, from the sources in the checkout, into ``ops/_build/`` (listed in
-``.gitignore``); a library is named by the hash of its source and flags,
-so an edited source builds anew. Nothing here runs at import.
+``.gitignore``); a library is named by the hash of its source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source or header builds
+anew. Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
 # kernel name -> source file under csrc/
-SOURCES: Dict[str, str] = {"flash_fwd": "flash_fwd.cu"}
+SOURCES: Dict[str, str] = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,10 +47,13 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> str:
-    src = os.path.join(CSRC, SOURCES[name])
+    """Library path of kernel ``name``, named by the hash of its source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

@@ -1,38 +1,49 @@
-"""Attention ops: the dense plain version, and the flash-attention forward
-as a hand-written CUDA kernel (K1, ``csrc/flash_fwd.cu``) beside its plain
-blockwise version.
+"""Attention ops: the dense plain version, and flash attention as
+hand-written CUDA kernels beside their plain blockwise versions.
 
 Counterpart of ``ray_tpu/ops/attention.py``:
 
 - ``attention_xla``: dense einsum softmax attention, the reference math.
-- ``flash_attention_ref``: the blockwise online-softmax arithmetic of the
-  kernel in plain PyTorch (the analog of the JAX kernel's
-  ``interpret=True``). The CPU tests and ``chip_smoke.py`` hold the kernel
-  to it.
-- ``flash_attention``: the wrapper. CUDA tensors launch K1; CPU tensors run
-  ``flash_attention_ref``. There is no fallback from one to the other.
+- ``flash_attention_ref`` and ``flash_attention_bwd_ref``: the blockwise
+  arithmetic of the forward (optionally with its per-row logsumexp) and of
+  the backward in plain PyTorch (the analog of the JAX kernels'
+  ``interpret=True``). The CPU tests and ``chip_smoke.py`` hold the kernels
+  to them.
+- ``flash_attention``: the wrapper, the analog of the JAX ``custom_vjp``.
+  Without a gradient to record, CUDA tensors launch K1 (the forward,
+  ``csrc/flash_fwd.cu``). With one, the forward is the custom op
+  ``ray_tpu_torch::flash_fwd_lse``: it launches K2 (the same forward, also
+  writing lse) and saves (q, k, v, out, lse), and its backward launches K3
+  (dK, dV) and K4 (dQ) from ``csrc/flash_bwd.cu``. CPU tensors, and
+  ``interpret=True`` on any device, run the plain versions instead. There is
+  no fallback from a kernel to a plain version.
 - ``attention``: the dispatcher.
 
-Shapes follow [batch, seq, heads, head_dim] throughout. Only the forward
-exists in this package so far: the backward kernels come with training.
+Shapes follow [batch, seq, heads, head_dim] throughout; lse is
+[batch, heads, seq_q] f32.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 NEG_INF = -1e30
 
-# The CUDA kernel picks its own tiles (64 x 64 for bf16, 32 x 16 for f32,
-# sized for Hopper's shared memory and registers). These defaults only set
-# the tiling of the plain blockwise version.
+# The CUDA kernels pick their own tiles (sized for Hopper's shared memory
+# and registers). These defaults only set the tiling of the plain blockwise
+# versions.
 DEFAULT_BLOCK_Q = 64
 DEFAULT_BLOCK_K = 64
 
 _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Launches of each kernel in this process; each wrapper adds one where it
+# launches its kernel, and nowhere else.
+launches = {"flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_dq": 0}
 
 
 def attention_xla(
@@ -70,34 +81,44 @@ def attention_xla(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _fold(x: torch.Tensor, T_p: int, H: int) -> torch.Tensor:
+    """[B, T, Hx, D] -> [B*H, T_p, D]: kv heads repeated to H, the sequence
+    zero-padded to T_p (the JAX kernels' folded layout)."""
+    B, T, Hx, D = x.shape
+    if Hx != H:
+        x = x.repeat_interleave(H // Hx, dim=2)
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, T_p - T))
+    return x.permute(0, 2, 1, 3).reshape(B * H, T_p, D)
+
+
+def _unfold(x: torch.Tensor, B: int, H: int, T: int) -> torch.Tensor:
+    """[B*H, T_p, D] -> [B, T, H, D]."""
+    return x.reshape(B, H, -1, x.shape[-1]).permute(0, 2, 1, 3)[:, :T]
+
+
 def flash_attention_ref(q, k, v, causal: bool = True,
                         block_q: int = DEFAULT_BLOCK_Q,
-                        block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch, block by block.
+                        block_k: int = DEFAULT_BLOCK_K,
+                        with_lse: bool = False):
+    """The forward kernels' arithmetic in plain PyTorch, block by block.
 
     Pads to block multiples and masks keys at or past the true length; per
     query block, streams K/V blocks up to the causal limit with a running
     max m, denominator l and accumulator in f32; products take the input
     dtype's values with f32 accumulation; scores are scaled in f32; P is cast
-    to V's dtype before the PV product; out = acc / max(l, 1e-30)."""
+    to V's dtype before the PV product; out = acc / max(l, 1e-30). With
+    ``with_lse`` also returns lse = max(m, NEG_INF) + log(max(l, 1e-30)),
+    [B, H, Tq] f32 (JAX's rule, attention.py:134)."""
     B, Tq, H, D = q.shape
-    _, Tk, Hkv, _ = k.shape
-    if Hkv != H:
-        k = k.repeat_interleave(H // Hkv, dim=2)
-        v = v.repeat_interleave(H // Hkv, dim=2)
+    Tk = k.shape[1]
     block_q = min(block_q, Tq)
     block_k = min(block_k, Tk)
     scale = D ** -0.5
     Tq_p = block_q * ((Tq + block_q - 1) // block_q)
     Tk_p = block_k * ((Tk + block_k - 1) // block_k)
-    qf = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, Tq_p - Tq))
-    kf = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, Tk_p - Tk))
-    vf = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, Tk_p - Tk))
-    # [B*H, T, D], the JAX kernel's folded layout.
-    qf = qf.permute(0, 2, 1, 3).reshape(B * H, Tq_p, D)
-    kf = kf.permute(0, 2, 1, 3).reshape(B * H, Tk_p, D)
-    vf = vf.permute(0, 2, 1, 3).reshape(B * H, Tk_p, D)
+    qf, kf, vf = _fold(q, Tq_p, H), _fold(k, Tk_p, H), _fold(v, Tk_p, H)
     out = torch.empty((B * H, Tq_p, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * H, Tq_p), dtype=torch.float32, device=q.device)
     num_k_blocks = (Tk + block_k - 1) // block_k
     for qi in range(Tq_p // block_q):
         qb = qf[:, qi * block_q:(qi + 1) * block_q].to(torch.float32)
@@ -125,32 +146,124 @@ def flash_attention_ref(q, k, v, causal: bool = True,
                 p.to(vb.dtype).to(torch.float32), vb.to(torch.float32)
             )
             m = m_new
-        out[:, qi * block_q:(qi + 1) * block_q] = (
-            acc / torch.clamp(l, min=1e-30)
-        ).to(q.dtype)
-    out = out.reshape(B, H, Tq_p, D).permute(0, 2, 1, 3)
-    return out[:, :Tq]
+        rows = slice(qi * block_q, (qi + 1) * block_q)
+        out[:, rows] = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+        lse[:, rows] = (torch.clamp(m, min=NEG_INF)
+                        + torch.log(torch.clamp(l, min=1e-30)))[..., 0]
+    out = _unfold(out, B, H, Tq)
+    if with_lse:
+        return out, lse.reshape(B, H, Tq_p)[..., :Tq]
+    return out
 
 
-def _flash_lib():
+def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = True,
+                            block_q: int = DEFAULT_BLOCK_Q,
+                            block_k: int = DEFAULT_BLOCK_K):
+    """The backward kernels' arithmetic in plain PyTorch, block by block
+    (JAX ``_flash_bwd_impl``, attention.py:312-396). Returns (dq, dk, dv) in
+    the inputs' dtype, dk/dv summed over each kv head's query heads.
+
+    delta = rowsum(dO * O) in f32. dK/dV: per key block, stream Q/dO blocks
+    from the causal start; P = exp(scale * q.k - lse), forced to 0 for
+    queries at or past Tq, keys at or past Tk and keys above the diagonal;
+    dV += P (cast to dO's dtype)^T dO; dP = dO V^T; dS = P (dP - delta)
+    scale, cast to the input dtype before dK += dS^T Q. dQ: per query block,
+    stream K/V blocks up to the causal limit, dQ += dS K. Products take the
+    input dtype's values with f32 accumulation; the GQA head-group sum is
+    taken in f32 before the cast, as the kernel takes it."""
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    block_q = min(block_q, Tq)
+    block_k = min(block_k, Tk)
+    scale = D ** -0.5
+    f32 = torch.float32
+    Tq_p = block_q * ((Tq + block_q - 1) // block_q)
+    Tk_p = block_k * ((Tk + block_k - 1) // block_k)
+    qf, kf, vf = _fold(q, Tq_p, H), _fold(k, Tk_p, H), _fold(v, Tk_p, H)
+    dof, of = _fold(do.to(q.dtype), Tq_p, H), _fold(out, Tq_p, H)
+    lsef = torch.nn.functional.pad(
+        lse.to(f32).reshape(B * H, Tq), (0, Tq_p - Tq))
+    delta = (dof.to(f32) * of.to(f32)).sum(-1)                 # [B*H, Tq_p]
+    dev = q.device
+    arange_q = torch.arange(block_q, device=dev)
+    arange_k = torch.arange(block_k, device=dev)
+
+    def probs(qi, ki):
+        """(P, dS) of query block qi against key block ki, f32."""
+        rq = slice(qi * block_q, (qi + 1) * block_q)
+        rk = slice(ki * block_k, (ki + 1) * block_k)
+        s = scale * torch.matmul(qf[:, rq].to(f32), kf[:, rk].to(f32).transpose(1, 2))
+        q_pos = qi * block_q + arange_q[:, None]
+        k_pos = ki * block_k + arange_k[None, :]
+        mask = (q_pos < Tq) & (k_pos < Tk)
+        if causal:
+            mask = mask & (q_pos >= k_pos)
+        p = torch.where(mask, torch.exp(s - lsef[:, rq, None]),
+                        torch.zeros((), dtype=f32, device=dev))
+        dp = torch.matmul(dof[:, rq].to(f32), vf[:, rk].to(f32).transpose(1, 2))
+        ds = p * (dp - delta[:, rq, None]) * scale
+        return p, ds
+
+    n_q, n_k = Tq_p // block_q, Tk_p // block_k
+    dk = torch.zeros((B * H, Tk_p, D), dtype=f32, device=dev)
+    dv = torch.zeros((B * H, Tk_p, D), dtype=f32, device=dev)
+    for ki in range(n_k):
+        start = (ki * block_k) // block_q if causal else 0
+        rk = slice(ki * block_k, (ki + 1) * block_k)
+        for qi in range(start, n_q):
+            rq = slice(qi * block_q, (qi + 1) * block_q)
+            p, ds = probs(qi, ki)
+            dv[:, rk] += torch.matmul(
+                p.to(do.dtype).to(f32).transpose(1, 2), dof[:, rq].to(f32))
+            dk[:, rk] += torch.matmul(
+                ds.to(q.dtype).to(f32).transpose(1, 2), qf[:, rq].to(f32))
+    dq = torch.zeros((B * H, Tq_p, D), dtype=f32, device=dev)
+    for qi in range(n_q):
+        n_iter = n_k
+        if causal:
+            n_iter = min(n_k, ((qi + 1) * block_q - 1) // block_k + 1)
+        rq = slice(qi * block_q, (qi + 1) * block_q)
+        for ki in range(n_iter):
+            rk = slice(ki * block_k, (ki + 1) * block_k)
+            _, ds = probs(qi, ki)
+            dq[:, rq] += torch.matmul(ds.to(q.dtype).to(f32), kf[:, rk].to(f32))
+    dq = _unfold(dq, B, H, Tq)
+    dk, dv = _unfold(dk, B, H, Tk), _unfold(dv, B, H, Tk)
+    if Hkv != H:
+        dk = dk.reshape(B, Tk, Hkv, H // Hkv, D).sum(3)
+        dv = dv.reshape(B, Tk, Hkv, H // Hkv, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ------------------------------------------------------------ CUDA kernels
+
+def _lib(name: str, functions) -> ctypes.CDLL:
+    """Kernel library ``name``, built at first use, with ``argtypes`` set for
+    each of ``functions`` ({C name: argtypes})."""
     from ray_tpu_torch.ops import _build
 
-    lib = _build.load("flash_fwd")
+    lib = _build.load(name)
     if not getattr(lib, "_rt_typed", False):
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.rt_flash_fwd.argtypes = (
-            [ptr] * 4 + [i32] * 6 + [i64] * 12
-            + [i32, ctypes.c_float, i32, ptr]
-        )
-        lib.rt_flash_fwd.restype = i32
-        lib.rt_cuda_error_string.argtypes = [i32]
+        for fn, argtypes in functions.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.rt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rt_cuda_error_string.restype = ctypes.c_char_p
         lib._rt_typed = True
     return lib
 
 
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_TAIL = [_I32, ctypes.c_float, _I32, _P]          # causal, scale, dtype, stream
+_FWD_ARGS = {"rt_flash_fwd": [_P] * 5 + [_I32] * 6 + [_I64] * 12 + _TAIL}
+_BWD_ARGS = {
+    "rt_flash_bwd_dkv": [_P] * 8 + [_I32] * 6 + [_I64] * 15 + _TAIL,
+    "rt_flash_bwd_dq": [_P] * 7 + [_I32] * 6 + [_I64] * 15 + _TAIL,
+}
+
+
 def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
-    """The kernel reads 16 bytes at a time along D from each (b, t, h) row:
+    """The kernels read 16 bytes at a time along D from each (b, t, h) row:
     the last dim must be contiguous and every other stride and the base
     address 16-byte aligned. Views that are not get one contiguous copy."""
     ok = (
@@ -161,7 +274,7 @@ def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
-def _flash_fwd_cuda(q, k, v, causal: bool) -> torch.Tensor:
+def _check_inputs(q, k, v) -> None:
     B, Tq, H, D = q.shape
     Bk, Tk, Hkv, Dk = k.shape
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -178,66 +291,165 @@ def _flash_fwd_cuda(q, k, v, causal: bool) -> torch.Tensor:
         raise ValueError(f"num_heads {H} not a multiple of kv heads {Hkv}")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must be on one device")
+
+
+def _raise_on(lib, rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{kernel} launch failed: "
+            + lib.rt_cuda_error_string(rc).decode(errors="replace")
+        )
+
+
+def _strides(*tensors):
+    return [s for t in tensors for s in t.stride()[:3]]
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool, with_lse: bool = False):
+    """K1 (``with_lse=False``: returns out) or K2 (returns out and lse)."""
+    _check_inputs(q, k, v)
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
-    lib = _flash_lib()
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    lib = _lib("flash_fwd", _FWD_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.rt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, Tq, Tk, H, Hkv, D,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            o.stride(0), o.stride(1), o.stride(2),
+            lse.data_ptr() if with_lse else None,
+            B, Tq, Tk, H, Hkv, D, *_strides(q, k, v, o),
             int(bool(causal)), float(D ** -0.5), _DTYPE_CODES[q.dtype], stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            "flash_fwd launch failed: "
-            + lib.rt_cuda_error_string(rc).decode(errors="replace")
+    name = "flash_fwd_lse" if with_lse else "flash_fwd"
+    _raise_on(lib, rc, name)
+    launches[name] += 1
+    return (o, lse) if with_lse else o
+
+
+def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, outs,
+                      causal: bool) -> None:
+    """Launch K3 (``kernel="flash_bwd_dkv"``, outs = (dk, dv)) or K4
+    (``"flash_bwd_dq"``, outs = (dq,)) into preallocated contiguous outputs.
+    q, k, v and do must be kernel-ready; lse and delta [B, H, Tq] f32,
+    contiguous."""
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    lib = _lib("flash_bwd", _BWD_ARGS)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, "rt_" + kernel)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+            B, Tq, Tk, H, Hkv, D, *_strides(q, k, v, do, outs[0]),
+            int(bool(causal)), float(D ** -0.5), _DTYPE_CODES[q.dtype], stream,
         )
-    flash_attention.launches += 1
-    return o
+    _raise_on(lib, rc, kernel)
+    launches[kernel] += 1
+
+
+def _flash_bwd_prepare(q, k, v, out, lse, do):
+    """Kernel-ready (q, k, v, do), lse and delta = rowsum(dO * O) in f32
+    ([B, H, Tq], contiguous). delta is torch ops, as the JAX package
+    computes it in XLA outside its kernels (attention.py:342)."""
+    _check_inputs(q, k, v)
+    B, Tq, H, _ = q.shape
+    if out.shape != q.shape or lse.shape != (B, H, Tq):
+        raise ValueError(f"flash backward: out {tuple(out.shape)} / lse "
+                         f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
+    do = _kernel_ready(do.to(q.dtype))
+    lse = lse.to(torch.float32).contiguous()
+    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, do, causal: bool):
+    """K3 then K4: (dq, dk, dv)."""
+    q, k, v, do, lse, delta = _flash_bwd_prepare(q, k, v, out, lse, do)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    _flash_bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal)
+    _flash_bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal)
+    return dq, dk, dv
+
+
+# ----------------------------------------------------- the autograd boundary
+
+# A custom op rather than a plain autograd.Function: selective activation
+# checkpointing (models/gpt2.py, remat_policy "dots") sees it by name and
+# keeps its outputs, the analog of checkpoint_name("flash_out"/"flash_lse")
+# (attention.py:424-425); a ctypes launch inside an autograd.Function would
+# be invisible to the policy and re-run in every backward.
+@torch.library.custom_op("ray_tpu_torch::flash_fwd_lse", mutates_args=())
+def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, block_q: int, block_k: int,
+                  interpret: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): K2 for CUDA tensors, the plain version for CPU tensors or
+    with ``interpret``."""
+    if interpret or not q.is_cuda:
+        return flash_attention_ref(q, k, v, causal, block_q, block_k,
+                                   with_lse=True)
+    return _flash_fwd_cuda(q, k, v, causal, with_lse=True)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, ctx.causal, ctx.block_q, ctx.block_k, ctx.interpret = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+
+
+def _backward(ctx, d_out, _d_lse):
+    q, k, v, out, lse = ctx.saved_tensors
+    if ctx.interpret or not q.is_cuda:
+        grads = flash_attention_bwd_ref(q, k, v, out, lse, d_out, ctx.causal,
+                                        ctx.block_q, ctx.block_k)
+    else:
+        grads = _flash_bwd_cuda(q, k, v, out, lse, d_out, ctx.causal)
+    return (*grads, None, None, None, None)
+
+
+torch.library.register_autograd("ray_tpu_torch::flash_fwd_lse", _backward,
+                                setup_context=_setup_context)
 
 
 def flash_attention(q, k, v, causal: bool = True,
                     block_q: int = DEFAULT_BLOCK_Q,
-                    block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
-    """Flash-attention forward. q: [B, Tq, H, D]; k/v: [B, Tk, Hkv, D].
+                    block_k: int = DEFAULT_BLOCK_K,
+                    interpret: bool = False) -> torch.Tensor:
+    """Flash attention. q: [B, Tq, H, D]; k/v: [B, Tk, Hkv, D].
 
-    CUDA tensors launch K1 (``block_q``/``block_k`` are then unused: the
-    kernel has its own tiles) and count one in ``flash_attention.launches``;
-    a build or launch error propagates. CPU tensors run
-    ``flash_attention_ref``. The backward kernels are not ported yet, so a
-    CUDA call that autograd would record raises ``NotImplementedError``."""
-    if not q.is_cuda:
-        return flash_attention_ref(q, k, v, causal, block_q, block_k)
+    With a gradient to record (grad enabled and q, k or v requiring one),
+    runs ``flash_fwd_lse``: K2 forward and K3/K4 backward on CUDA tensors.
+    Otherwise CUDA tensors launch K1. CPU tensors, and ``interpret=True`` on
+    any device, run the plain versions, forward and backward. On CUDA
+    ``block_q``/``block_k`` are unused: the kernels have their own tiles. A
+    build or launch error propagates."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention on CUDA has no backward kernel yet; call it "
-            "under torch.no_grad() or use impl='xla' for gradients"
-        )
+        out, _ = flash_fwd_lse(q, k, v, causal, block_q, block_k, interpret)
+        return out
+    if interpret or not q.is_cuda:
+        return flash_attention_ref(q, k, v, causal, block_q, block_k)
     return _flash_fwd_cuda(q, k, v, causal)
-
-
-flash_attention.launches = 0  # K1 launches in this process
 
 
 def attention(q, k, v, *, causal: bool = True, impl: str = "auto",
               block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K):
     """Dispatcher. impl: auto | xla | flash | flash_interpret.
 
-    ``"auto"`` is the kernel for CUDA tensors and the dense version for CPU
+    ``"auto"`` is the kernels for CUDA tensors and the dense version for CPU
     tensors, decided by where the tensors lie, with no probe and no
-    fallback. ``"flash_interpret"`` runs the plain blockwise version on any
-    device (the analog of the JAX kernel's interpret mode)."""
+    fallback. ``"flash_interpret"`` runs the plain blockwise versions,
+    forward and backward, on any device (the analog of the JAX kernels'
+    interpret mode)."""
     if impl == "auto":
         impl = "flash" if q.is_cuda else "xla"
     if impl == "xla":
         return attention_xla(q, k, v, causal=causal)
-    if impl == "flash":
-        return flash_attention(q, k, v, causal, block_q, block_k)
-    if impl == "flash_interpret":
-        return flash_attention_ref(q, k, v, causal, block_q, block_k)
+    if impl in ("flash", "flash_interpret"):
+        return flash_attention(q, k, v, causal, block_q, block_k,
+                               interpret=impl == "flash_interpret")
     raise ValueError(f"unknown attention impl {impl}")

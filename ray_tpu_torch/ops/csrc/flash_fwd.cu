@@ -1,8 +1,15 @@
-// K1: flash-attention forward, inference variant (no logsumexp output).
+// K1 and K2: flash-attention forward, without (K1) and with (K2) the
+// per-row logsumexp.
 //
-// Replaces: ray_tpu/ops/attention.py:_flash_kernel (:73) as launched by
-// _flash_fwd_impl(with_lse=False) (:191), the forward of every serving
-// call of the JAX package's full-sequence forward.
+// Replaces: ray_tpu/ops/attention.py:_flash_kernel (:73), one kernel body in
+// JAX too. K1 is _flash_fwd_impl(with_lse=False) (:191), the forward of
+// every serving call of the JAX package's full-sequence forward; K2 is
+// _flash_fwd_impl(with_lse=True) (:174), the forward of every training step,
+// whose lse = max(m, NEG_INF) + log(max(l, 1e-30)) (:134) feeds the backward
+// kernels (flash_bwd.cu). Here the two are one template with a compile-time
+// flag: a null lse pointer launches the K1 instance, whose code has no lse
+// store at all. The port stores lse as [B, H, Tq] f32, not JAX's
+// 8x-replicated [B*H, 8, Tq_p] (a Mosaic tiling rule, :131-135).
 //
 // Contract (the JAX kernel's, attention.py:82-85 and :118-121):
 //   - bf16 operands with f32 accumulation (mma.sync m16n8k16 bf16 -> f32);
@@ -34,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -43,6 +52,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // [B, H, Tq] f32; written only by the kWithLse instances
   int B, Tq, Tk, H, Hkv;
   long long sqb, sqt, sqh;
   long long skb, skt, skh;
@@ -57,29 +67,6 @@ struct Params {
 constexpr int kBQ = 64;       // query rows per block: 4 warps x 16 rows
 constexpr int kBK = 64;       // keys per K/V tile
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo,
-                                                  __nv_bfloat16 hi) {
-  __nv_bfloat162 p;
-  p.x = lo;
-  p.y = hi;
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// d += a * b for one 16x8x16 tile: a row-major 16x16, b column-major 16x8.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -111,7 +98,7 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16 (*dst)[D + 8],
   }
 }
 
-template <int D>
+template <int D, bool kWithLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16_kernel(Params p) {
   // +8 bf16 of padding a row: the fragment loads below then hit 32
@@ -244,6 +231,12 @@ flash_fwd_bf16_kernel(Params p) {
     }
   }
 
+  if constexpr (kWithLse) {
+    // m and l are quad-reduced, so one thread of each quad writes the row.
+    float* lse = p.lse + (long long)bh * p.Tq;
+    if (t == 0 && row0 < p.Tq) lse[row0] = fmaxf(m0, kNegInf) + logf(fmaxf(l0, 1e-30f));
+    if (t == 0 && row1 < p.Tq) lse[row1] = fmaxf(m1, kNegInf) + logf(fmaxf(l1, 1e-30f));
+  }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
@@ -265,7 +258,7 @@ flash_fwd_bf16_kernel(Params p) {
 constexpr int kFBQ = 32;  // query rows per block, 4 threads a row
 constexpr int kFBK = 16;  // keys per K/V tile
 
-template <int D>
+template <int D, bool kWithLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(Params p) {
   // +1 float of padding a row keeps the strided reads on distinct banks.
@@ -352,6 +345,11 @@ flash_fwd_f32_kernel(Params p) {
     }
   }
 
+  if constexpr (kWithLse) {
+    if (j == 0 && row < p.Tq) {
+      p.lse[(long long)bh * p.Tq + row] = fmaxf(m, kNegInf) + logf(fmaxf(l, 1e-30f));
+    }
+  }
   if (row < p.Tq) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
 #pragma unroll
@@ -359,27 +357,33 @@ flash_fwd_f32_kernel(Params p) {
   }
 }
 
-template <int D>
+template <int D, bool kWithLse>
 cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
   dim3 block(kThreads);
   const int bh = p.B * p.H;
   if (dtype == 1) {
     dim3 grid((p.Tq + kBQ - 1) / kBQ, bh);
-    flash_fwd_bf16_kernel<D><<<grid, block, 0, stream>>>(p);
+    flash_fwd_bf16_kernel<D, kWithLse><<<grid, block, 0, stream>>>(p);
   } else {
     dim3 grid((p.Tq + kFBQ - 1) / kFBQ, bh);
-    flash_fwd_f32_kernel<D><<<grid, block, 0, stream>>>(p);
+    flash_fwd_f32_kernel<D, kWithLse><<<grid, block, 0, stream>>>(p);
   }
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const Params& p, int dtype, cudaStream_t stream) {
+  return p.lse ? launch<D, true>(p, dtype, stream) : launch<D, false>(p, dtype, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches K1 on `stream` and returns the launch's cudaError_t (0 = queued).
+// Launches K1 (lse == NULL) or K2 (lse = a [B, H, Tq] f32 buffer) on
+// `stream` and returns the launch's cudaError_t (0 = queued).
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements.
-int rt_flash_fwd(const void* q, const void* k, const void* v, void* o,
+int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                  int B, int Tq, int Tk, int H, int Hkv, int D,
                  long long sqb, long long sqt, long long sqh,
                  long long skb, long long skt, long long skh,
@@ -390,7 +394,7 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* o,
       (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p{q, k, v, o, B, Tq, Tk, H, Hkv,
+  Params p{q, k, v, o, static_cast<float*>(lse), B, Tq, Tk, H, Hkv,
            sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
            causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

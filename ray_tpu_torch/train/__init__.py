@@ -1,0 +1,20 @@
+"""Training of the port: the train step on one card.
+
+Counterpart of ``ray_tpu/train/step.py`` for ``mesh=None``:
+``OptimizerConfig``, ``create_train_state``, ``make_train_step`` and
+``make_eval_step``. The rest of ``ray_tpu.train`` (trainers, worker groups,
+checkpoints) comes with the runtime slice, and the sharded step with the
+parallel layer.
+"""
+from ray_tpu_torch.train.step import (
+    ClipAdamW,
+    OptimizerConfig,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
+
+__all__ = [
+    "ClipAdamW", "OptimizerConfig", "create_train_state", "make_eval_step",
+    "make_train_step",
+]

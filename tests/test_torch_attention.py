@@ -1,21 +1,24 @@
 """Parity of the port's attention ops (ray_tpu_torch.ops.attention) with the
 JAX package's (ray_tpu.ops.attention), on the CPU.
 
-The same numpy-seeded f32 inputs go through both. The JAX flash kernel runs
-in interpret mode, as its own tests run it; the port's CPU path is the
-kernel's plain blockwise version. Bound: 2e-5, the reference's own f32
-forward tolerance (tests/test_attention.py).
+The same numpy-seeded f32 inputs go through both. The JAX flash kernels run
+in interpret mode, as its own tests run them; the port's CPU path is the
+kernels' plain blockwise versions. Bounds: 2e-5 for the forward and its
+logsumexp, 2e-4 for gradients, the reference's own f32 tolerances
+(tests/test_attention.py).
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ray_tpu.ops import attention as jattn
 from ray_tpu_torch.ops import attention as tattn
 
 TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=2e-4, rtol=2e-4)
 
 
 def _qkv(B, T, H, D, Hkv=None, seed=0):
@@ -88,15 +91,22 @@ def test_attention_xla_bias_and_offsets_match_jax():
 
 def test_dispatcher_on_cpu_tensors():
     """On CPU tensors "auto" is the dense version, "flash" the wrapper's
-    plain blockwise path; neither launches the kernel."""
+    plain blockwise path, with and without a gradient to record; none
+    launches a kernel."""
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 80, 2, 16, seed=4))
-    before = tattn.flash_attention.launches
+    before = dict(tattn.launches)
     dense = tattn.attention_xla(q, k, v, causal=True)
     for impl in ("auto", "xla", "flash", "flash_interpret"):
         out = tattn.attention(q, k, v, causal=True, impl=impl,
                               block_q=32, block_k=32)
         torch.testing.assert_close(out, dense, **TOL)
-    assert tattn.flash_attention.launches == before
+        qg = q.clone().requires_grad_()
+        out = tattn.attention(qg, k, v, causal=True, impl=impl,
+                              block_q=32, block_k=32)
+        torch.testing.assert_close(out, dense, **TOL)
+        out.sum().backward()
+        assert torch.isfinite(qg.grad).all()
+    assert tattn.launches == before
     with pytest.raises(ValueError):
         tattn.attention(q, k, v, impl="ring")
 
@@ -124,3 +134,80 @@ def test_kernel_ready_copies_only_misaligned_views():
     odd = torch.zeros(2, 8, 4, 20)[..., 2:18]   # stride 20, offset 2
     fixed = tattn._kernel_ready(odd)
     assert fixed is not odd and fixed.is_contiguous()
+
+
+@pytest.mark.parametrize(
+    "B,T,H,Hkv,D,causal,block",
+    [
+        (2, 64, 4, 4, 32, True, 32),
+        (1, 100, 4, 2, 32, True, 64),    # GQA, ragged
+        (1, 100, 4, 2, 32, False, 64),
+        (1, 96, 2, 2, 16, True, 64),     # ragged T
+    ],
+)
+def test_flash_ref_lse_matches_jax(B, T, H, Hkv, D, causal, block):
+    """``flash_attention_ref(with_lse=True)`` against the JAX forward with
+    lse (K2's reference): lse is row 0 of JAX's [B*H, 8, Tq_p], cut to Tq."""
+    arrays = _qkv(B, T, H, D, Hkv, seed=6)
+    out_j, lse_j = jattn._flash_fwd_impl(
+        *(jnp.asarray(a) for a in arrays), causal=causal, block_q=block,
+        block_k=block, interpret=True, with_lse=True)
+    out_t, lse_t = tattn.flash_attention_ref(
+        *(torch.from_numpy(a) for a in arrays), causal, block, block,
+        with_lse=True)
+    assert lse_t.shape == (B, H, T) and lse_t.dtype == torch.float32
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+    lse_j = np.asarray(lse_j)[:, 0, :T].reshape(B, H, T)
+    np.testing.assert_allclose(lse_t.numpy(), lse_j, **TOL)
+
+
+@pytest.mark.parametrize(
+    "B,T,H,Hkv,D,causal,block",
+    [
+        (2, 64, 4, 4, 32, True, 32),     # test_flash_grad_matches_xla
+        (1, 100, 4, 2, 32, True, 64),    # test_flash_bwd_kernel_gqa_and_ragged
+        (1, 100, 4, 2, 32, False, 64),
+        (1, 96, 2, 2, 16, True, 64),     # ragged T
+    ],
+)
+def test_flash_grads_match_jax(B, T, H, Hkv, D, causal, block):
+    """dq/dk/dv of the port's ``flash_attention`` on CPU tensors (plain
+    forward with lse, then ``flash_attention_bwd_ref``) against ``jax.grad``
+    of the JAX ``flash_attention`` in interpret mode (its Pallas backward
+    kernels), for the loss <out, g>."""
+    q, k, v = _qkv(B, T, H, D, Hkv, seed=7)
+    g = np.random.RandomState(8).randn(B, T, H, D).astype(np.float32)
+
+    def loss_j(q, k, v):
+        return jnp.vdot(jattn.flash_attention(q, k, v, causal, block, block,
+                                              True), jnp.asarray(g))
+
+    grads_j = jax.jit(jax.grad(loss_j, argnums=(0, 1, 2)))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = tattn.flash_attention(qt, kt, vt, causal, block, block)
+    grads_t = torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(g))
+    for gt, gj in zip(grads_t, grads_j):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), **GRAD_TOL)
+
+
+def test_flash_bwd_ref_bf16_follows_precision_contract():
+    """bf16 inputs: the blockwise backward casts P and dS to bf16 before
+    their products and returns bf16 gradients. Bound 5e-2 against the f32
+    dense gradients on the same bf16 values: P and dS each carry one bf16
+    rounding (2^-8 relative) into sums over up to 96 keys, plus the
+    output's rounding, on gradients of magnitude below ~3."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, 96, 4, 32, Hkv=2, seed=9))
+    do = torch.from_numpy(
+        np.random.RandomState(10).randn(1, 96, 4, 32).astype(np.float32))
+    out, lse = tattn.flash_attention_ref(q, k, v, True, 32, 32, with_lse=True)
+    grads = tattn.flash_attention_bwd_ref(q, k, v, out, lse,
+                                          do.to(torch.bfloat16), True, 32, 32)
+    assert all(gr.dtype == torch.bfloat16 for gr in grads)
+    q32, k32, v32 = (x.float().requires_grad_() for x in (q, k, v))
+    ref = tattn.attention_xla(q32, k32, v32, causal=True)
+    ref_grads = torch.autograd.grad(ref, (q32, k32, v32),
+                                    do.to(torch.bfloat16).float())
+    for gr, rg in zip(grads, ref_grads):
+        torch.testing.assert_close(gr.float(), rg, atol=5e-2, rtol=5e-2)

@@ -218,7 +218,8 @@ _PORT_MODULES = [
     "ray_tpu_torch.ops._build", "ray_tpu_torch.models",
     "ray_tpu_torch.models.gpt2", "ray_tpu_torch.models.convert",
     "ray_tpu_torch.llm", "ray_tpu_torch.llm.config",
-    "ray_tpu_torch.llm.engine",
+    "ray_tpu_torch.llm.engine", "ray_tpu_torch.ops.xent",
+    "ray_tpu_torch.train", "ray_tpu_torch.train.step",
 ]
 
 
