@@ -7,7 +7,10 @@ Phases, in order; any failure exits non-zero:
 
 1. Card and toolchain: the card's name and power limit, torch and CUDA
    versions; TF32 off; every kernel built from ``ray_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together).
+   (one ``nvcc`` per source, all started together), with no register
+   spills in ptxas's report, and the SASS of every wgmma kernel instance
+   (K1/K2's bf16 forward, K3's bf16 body) holding ``HGMMA`` and ``UTMALDG``
+   instructions (``cuobjdump``): the Hopper tensor-core and TMA paths.
 2. K1 (the flash-attention forward) against its plain blockwise version on
    the card, over the serving shapes and the edge cases; then K2 (the
    forward with lse) and K3/K4 (the backward) against theirs, over the
@@ -44,6 +47,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import subprocess
 import sys
 import time
 
@@ -79,6 +84,44 @@ LSE_TOL = (2e-5, 2e-5)
 # order (a rounding flip is rare), and each rounds its output to bf16 (2^-8
 # relative), so K1's 1e-2 absolute and relative holds.
 GRAD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-2)}
+
+
+# K1-K4 against their plain versions, phase 2: the serving shapes and the
+# edge cases (the training shape is added there).
+CASES = [
+    # name, B, T, H, Hkv, D, causal, dtype, fused
+    ("entry", 2, 256, 12, 12, 64, True, "bfloat16", False),
+    ("entry", 2, 256, 12, 12, 64, True, "float32", False),
+    ("entry-fused-qkv", 2, 256, 12, 12, 64, True, "bfloat16", True),
+    ("bucket64", 1, 64, 12, 12, 64, True, "bfloat16", False),
+    ("bucket128", 1, 128, 12, 12, 64, True, "bfloat16", False),
+    ("bucket256", 1, 256, 12, 12, 64, True, "bfloat16", False),
+    ("ragged96", 1, 96, 12, 12, 64, True, "bfloat16", False),
+    ("ragged96", 1, 96, 12, 12, 64, True, "float32", False),
+    ("ragged1000", 1, 1000, 12, 12, 64, True, "bfloat16", False),
+    ("ragged1000", 1, 1000, 12, 12, 64, True, "float32", False),
+    ("noncausal", 2, 256, 12, 12, 64, False, "bfloat16", False),
+    ("noncausal-ragged", 1, 1000, 4, 4, 64, False, "float32", False),
+    ("gqa", 2, 256, 4, 2, 64, True, "bfloat16", False),
+    ("gqa-ragged", 1, 100, 4, 2, 64, False, "float32", False),
+    ("d16", 1, 200, 4, 4, 16, True, "bfloat16", False),
+    ("d16", 1, 200, 4, 4, 16, True, "float32", False),
+    ("d32", 1, 200, 4, 4, 32, True, "bfloat16", False),
+    ("d32", 1, 200, 4, 4, 32, True, "float32", False),
+    ("d128", 1, 200, 4, 4, 128, True, "bfloat16", False),
+    ("d128", 1, 200, 4, 4, 128, True, "float32", False),
+    # An odd length with GQA: ragged TMA boxes, lse/delta rows of a
+    # length that is no multiple of 4.
+    ("odd77-gqa", 2, 77, 4, 2, 64, True, "bfloat16", False),
+    # The wgmma kernels' other layouts: GQA and V's transposed descriptor at
+    # D=128 without the mask, and K3's non-causal walk at the small head dims.
+    ("d128-noncausal-gqa", 1, 300, 4, 2, 128, False, "bfloat16", False),
+    ("d16-gqa-odd", 1, 77, 4, 2, 16, True, "bfloat16", False),
+    ("d32-noncausal", 1, 150, 4, 4, 32, False, "bfloat16", False),
+    # A longer causal walk: the tile rings spend most of their time in
+    # steady state.
+    ("long2048", 4, 2048, 12, 12, 64, True, "bfloat16", True),
+]
 
 
 class SmokeFailure(RuntimeError):
@@ -163,6 +206,34 @@ def attn_bound_ms(kernel, B, Tq, Tk, H, Hkv, D, causal, dtype_name):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Kernels built on wgmma and TMA: {symbol: (label, instances)}. Each
+# instance's SASS must hold both; the forward has one per head dim with and
+# without lse, K3 one per head dim.
+HOPPER_KERNELS = {"flash_fwd_bf16_kernel": ("K1/K2 bf16 forward", 8),
+                  "flash_bwd_dkv_bf16_kernel": ("K3 bf16", 4)}
+
+
+def sass_counts(lib: str, cuobjdump: str, ops=("HGMMA", "UTMALDG"),
+                sass: str | None = None) -> dict:
+    """{kernel function: {op: n}}: how many SASS instructions of each of
+    ``ops`` each function of one built library holds (``cuobjdump -sass``,
+    or the listing given as ``sass``)."""
+    if sass is None:
+        sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                              text=True, check=True).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            counts[func] = dict.fromkeys(ops, 0)
+        elif func:
+            for op in ops:
+                if re.search(r"\b" + re.escape(op) + r"\b", line):
+                    counts[func][op] += 1
+    return counts
+
+
 def close(out, ref, tol):
     """(max abs error, number of elements outside atol + rtol * |ref|)."""
     atol, rtol = tol
@@ -235,11 +306,27 @@ def main() -> int:
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.2f} s ({', '.join(f'{k} {v:.2f} s' for k, v in built.items())})")
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    instances = dict.fromkeys(HOPPER_KERNELS, 0)
     for name in built:
         with open(_build.lib_path(name) + ".log") as f:
             for line in f:
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                check(m is None or m.groups() == ("0", "0"),
+                      f"ptxas {name}: {line.strip()}")
+        for func, ops in sass_counts(_build.lib_path(name), cuobjdump).items():
+            for key, (label, _) in HOPPER_KERNELS.items():
+                if key in func:
+                    instances[key] += 1
+                    log(f"  sass {label} {func}: HGMMA {ops['HGMMA']}, "
+                        f"UTMALDG {ops['UTMALDG']}")
+                    check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
+                          f"{func}: no wgmma or no TMA load in its SASS")
+    for key, (label, want) in HOPPER_KERNELS.items():
+        check(instances[key] == want, f"{label}: {instances[key]} instances of "
+              f"{key} in the SASS, want {want}")
 
     # ------------------------------------------- 2. K1 against plain version
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -253,38 +340,15 @@ def main() -> int:
             for h in (H, Hkv, Hkv)
         )
 
-    bf16, f32 = torch.bfloat16, torch.float32
-    cases = [
-        # name, B, T, H, Hkv, D, causal, dtype, fused
-        ("entry", 2, 256, 12, 12, 64, True, bf16, False),
-        ("entry", 2, 256, 12, 12, 64, True, f32, False),
-        ("entry-fused-qkv", 2, 256, 12, 12, 64, True, bf16, True),
-        ("bucket64", 1, 64, 12, 12, 64, True, bf16, False),
-        ("bucket128", 1, 128, 12, 12, 64, True, bf16, False),
-        ("bucket256", 1, 256, 12, 12, 64, True, bf16, False),
-        ("ragged96", 1, 96, 12, 12, 64, True, bf16, False),
-        ("ragged96", 1, 96, 12, 12, 64, True, f32, False),
-        ("ragged1000", 1, 1000, 12, 12, 64, True, bf16, False),
-        ("ragged1000", 1, 1000, 12, 12, 64, True, f32, False),
-        ("noncausal", 2, 256, 12, 12, 64, False, bf16, False),
-        ("noncausal-ragged", 1, 1000, 4, 4, 64, False, f32, False),
-        ("gqa", 2, 256, 4, 2, 64, True, bf16, False),
-        ("gqa-ragged", 1, 100, 4, 2, 64, False, f32, False),
-        ("d16", 1, 200, 4, 4, 16, True, bf16, False),
-        ("d16", 1, 200, 4, 4, 16, True, f32, False),
-        ("d32", 1, 200, 4, 4, 32, True, bf16, False),
-        ("d32", 1, 200, 4, 4, 32, True, f32, False),
-        ("d128", 1, 200, 4, 4, 128, True, bf16, False),
-        ("d128", 1, 200, 4, 4, 128, True, f32, False),
-    ]
+    bf16 = torch.bfloat16
     errs = []
-    for name, B, T, H, Hkv, D, causal, dtype, fused in cases:
+    for name, B, T, H, Hkv, D, causal, dname, fused in CASES:
+        dtype = getattr(torch, dname)
         q, k, v = qkv(B, T, H, Hkv, D, dtype, fused)
         with torch.no_grad():
             out = attn.flash_attention(q, k, v, causal)
             torch.cuda.synchronize()
             ref = attn.flash_attention_ref(q, k, v, causal)
-        dname = str(dtype).split(".")[-1]
         atol, rtol = TOL[dname]
         max_err, nbad = close(out, ref, TOL[dname])
         errs.append({"case": name, "dtype": dname, "shape": [B, T, H, Hkv, D],
@@ -304,8 +368,9 @@ def main() -> int:
     train_case = ("train", *TRAIN_BATCH[:1], TRAIN_BATCH[1], MODEL["num_heads"],
                   MODEL["num_heads"], MODEL["embed_dim"] // MODEL["num_heads"], True)
     train_errs = {}
-    for name, B, T, H, Hkv, D, causal, dtype, fused in cases + [
-            (*train_case, bf16, True), (*train_case, f32, True)]:
+    for name, B, T, H, Hkv, D, causal, dname, fused in CASES + [
+            (*train_case, "bfloat16", True), (*train_case, "float32", True)]:
+        dtype = getattr(torch, dname)
         q, k, v = qkv(B, T, H, Hkv, D, dtype, fused)
         do = torch.randn(B, T, H, D, device=dev, generator=gen).to(dtype)
         with torch.no_grad():
@@ -316,7 +381,6 @@ def main() -> int:
                                                         with_lse=True)
             rq, rk, rv = attn.flash_attention_bwd_ref(q, k, v, out, lse, do,
                                                       causal)
-        dname = str(dtype).split(".")[-1]
         errs_case = {
             "out": close(out, ref_out, TOL[dname]),
             "lse": close(lse, ref_lse, LSE_TOL),

@@ -709,6 +709,13 @@ class DecodeEngine:
         return self.tokenizer.decode(out)
 
     def _ensure_loop(self):
+        # Fast path, without the lock: the loop re-takes the lock as soon as
+        # it drops it while work flows, so a submit() that waited for it
+        # would trickle in behind whole ticks. A loop that parks re-checks
+        # the queue after it lets go of the thread (see _loop).
+        t = self._loop_thread
+        if t is not None and t.is_alive():
+            return
         with self._lock:
             if self._loop_thread is not None and self._loop_thread.is_alive():
                 return
@@ -745,12 +752,16 @@ class DecodeEngine:
             if idle_since is None:
                 idle_since = time.monotonic()
             elif time.monotonic() - idle_since > 30:
-                # Park. The pending re-check + handoff under the lock closes
-                # the race with a submit() that saw this thread still alive.
+                # Park. _ensure_loop's fast path reads the thread without the
+                # lock, so a submit() may queue after the first check and
+                # still see this thread alive: re-check once the thread is
+                # cleared, and take it back if anything came in.
                 with self._lock:
                     if self._pending.empty():
                         self._loop_thread = None
-                        return
+                        if self._pending.empty():
+                            return
+                        self._loop_thread = threading.current_thread()
                 idle_since = None
             tick.sleep()
 

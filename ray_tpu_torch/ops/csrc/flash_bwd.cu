@@ -8,8 +8,9 @@
 // ops as the JAX package computes it in XLA (:342).
 //
 // Contract (the JAX kernels'):
-//   - bf16 operands with f32 accumulation (mma.sync m16n8k16 bf16 -> f32);
-//     f32 operands stay f32 on plain FMA (TF32 would break the 2e-4 bound);
+//   - bf16 operands with f32 accumulation (K3: wgmma m64nNk16, K4:
+//     mma.sync m16n8k16, bf16 -> f32); f32 operands stay f32 on plain FMA
+//     (TF32 would break the 2e-4 bound);
 //   - s = scale * (q . k) in f32; P = exp(s - lse), forced to 0 where masked:
 //     queries at or past seq_q, keys at or past seq_k, and keys above the
 //     diagonal when causal (q_pos >= k_pos, top-left aligned);
@@ -26,13 +27,31 @@
 // half of the [T, T] pairs (S^T, dP^T, dV, dK; 103 GFLOP, 0.104 ms at
 // 989 TFLOP/s) and moves q, k, v, dO, dK, dV once (302 MB, 0.090 ms at
 // 3.35 TB/s); K4 runs three products (77 GFLOP, 0.078 ms) and moves q, k,
-// v, dO, dQ (252 MB, 0.075 ms). Both sit near the ridge, so the design keeps
-// every [Tq, Tk] tile (S, P, dP, dS) in registers and reads each operand
-// tile from device memory once per block: K3 holds one 64-key K/V tile and
-// streams 64-query Q/dO tiles from the causal start (rows below the
-// diagonal only); K4 holds Q/dO fragments in registers and streams K/V
-// tiles up to the causal limit. A simple mma.sync kernel first: wgmma, TMA
-// and a pipelined tile ring are later work.
+// v, dO, dQ (252 MB, 0.075 ms). Both sit near the ridge, so both keep every
+// [Tq, Tk] tile (S, P, dP, dS) in registers and read each operand tile
+// from device memory once per block.
+//
+// K3 (bf16) is built for Hopper (sm_90a):
+//   - one block per (128-key tile, batch * kv head): two consumer
+//     warpgroups of 64 keys each and one producer warp (at D=128 one
+//     warpgroup and 64 keys, for registers). K and V are loaded
+//     once by TMA; the Q and dO tiles of every query head of the kv head
+//     stream through a ring of kStages shared-memory stages guarded by
+//     full/empty mbarriers, from the causal start on (TMA, zero rows past
+//     seq_q). lse and delta of each tile are plain loads by the producer
+//     warp into the same stage (a tensor map over [B*H, Tq] f32 would need
+//     Tq a multiple of 4);
+//   - four wgmma products per query tile: S^T = K Q^T and dP^T = V dO^T
+//     with both operands in shared memory (K-major), then dV += P^T dO and
+//     dK += dS^T Q with P^T and dS^T packed from those accumulators into
+//     register A operands and dO, Q read MN-major (transpose bit);
+//   - the mask only on tiles that cross the diagonal or a ragged end, and
+//     none of the work for query tiles wholly before a warpgroup's keys;
+//   - blocks run kv-head group by group, each group small enough that its
+//     Q/dO stay in L2 while all its key tiles stream them; within a group
+//     key tile 0, whose causal walk is longest, starts first.
+// K4 (bf16) holds Q/dO fragments in registers and streams K/V tiles up to
+// the causal limit with mma.sync, synchronous copies and no pipeline.
 //
 // Layout: tensors are [B, T, heads, D] with the last dim contiguous, other
 // strides (elements) are arguments; lse and delta are [B, H, Tq] f32,
@@ -44,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -66,6 +86,7 @@ struct Params {
   long long sgb, sgt, sgh;  // strides of dq (K4) or of dk and dv (K3)
   int causal;
   float scale;
+  int head_group;  // K3 bf16: kv heads whose blocks run together (l2_head_group)
 };
 
 constexpr int kThreads = 128;  // 4 warps
@@ -96,161 +117,230 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, int rows,
   }
 }
 
-// The A fragment of rows [row, row + 16) x cols [c, c + 16) of a [.][D + 8]
-// shared tile.
+// ---------------------------------------------------- K3 bf16: wgmma, TMA ring
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kStages = 2;  // Q/dO tiles in flight
+
 template <int D>
-__device__ __forceinline__ void load_a_frag(uint32_t (&a)[4], const __nv_bfloat16* tile,
-                                            int row, int c, int g, int t) {
-  a[0] = ld32(tile + (row + g) * (D + 8) + c + 2 * t);
-  a[1] = ld32(tile + (row + g + 8) * (D + 8) + c + 2 * t);
-  a[2] = ld32(tile + (row + g) * (D + 8) + c + 8 + 2 * t);
-  a[3] = ld32(tile + (row + g + 8) * (D + 8) + c + 8 + 2 * t);
-}
+struct DkvTiles {
+  // Consumer warpgroups of 64 keys each. At D=128 dK and dV alone take 128
+  // registers a thread: one warpgroup and a producer warp make a 160-thread
+  // block, whose threads may take 255 registers (a 288-thread block's 168).
+  static constexpr int kWG = D == 128 ? 1 : 2;
+  static constexpr int kBK = 64 * kWG;            // keys a block
+  static constexpr int kBQ = D == 128 ? 32 : 64;  // queries a streamed tile
+  static constexpr int kCols = panel_cols(D);
+  static constexpr int kPanels = D / kCols;
+  static constexpr int kRowBytes = 2 * kCols;
+  static constexpr int kKVBytes = kBK * D * 2;    // one of K, V
+  static constexpr int kQBytes = kBQ * D * 2;     // one of Q, dO
+  static constexpr int kThreads = 128 * kWG + 32;  // + the producer warp
+  // K, V, kStages x (Q, dO), kStages x (lse, delta) rows, the barriers;
+  // 1024 bytes of slack to align.
+  static constexpr int kRowsOffset = 2 * kKVBytes + kStages * 2 * kQBytes;
+  static constexpr size_t kSmem =
+      1024 + kRowsOffset + kStages * 2 * kBQ * 4 + 8 * (2 * kStages + 1);
+};
 
-// K3, bf16. One block per (64-key tile, batch * kv head); warp w owns keys
-// [k0 + 16w, k0 + 16w + 16). The scores are computed transposed, S^T = K Q^T,
-// with the keys as the mma M dimension, so that the f32 accumulators of two
-// neighbouring n-tiles of P^T and dS^T are, once cast, exactly the A
-// fragments of the dV += P^T dO and dK += dS^T Q products: P and dS never
-// leave registers. lse and delta are per query, i.e. per column here, and
-// come from shared memory with each Q tile.
-template <int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(Params p) {
-  constexpr int BK = 64;
-  constexpr int LD = D + 8;  // padded row: conflict-free fragment loads
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + BK * LD;
-  __nv_bfloat16* Qs = Vs + BK * LD;
-  __nv_bfloat16* dOs = Qs + BQ * LD;
-  float* lse_s = reinterpret_cast<float*>(dOs + BQ * LD);
-  float* delta_s = lse_s + BQ;
+// K3, bf16. The scores are computed transposed, S^T = K Q^T, with the keys
+// as the wgmma M dimension, so that the f32 accumulators of P^T and dS^T
+// are, packed, the register A operands of dV += P^T dO and dK += dS^T Q:
+// P and dS never leave registers. lse and delta are per query, i.e. per
+// column here, and come from the stage's rows in shared memory.
+template <int D>
+__global__ void __launch_bounds__(DkvTiles<D>::kThreads, 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do, Params p) {
+  using Tiles = DkvTiles<D>;
+  constexpr int BQ = Tiles::kBQ, BK = Tiles::kBK, RB = Tiles::kRowBytes;
+  constexpr int kCols = Tiles::kCols;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t k_s = (raw + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + Tiles::kKVBytes;
+  const uint32_t qd_s = v_s + Tiles::kKVBytes;  // stage s: Q, then dO
+  float* lse_s = reinterpret_cast<float*>(smem_raw + (k_s - raw) + Tiles::kRowsOffset);
+  float* delta_s = lse_s + kStages * BQ;        // both [kStages][BQ]
+  const uint32_t bars = k_s + Tiles::kRowsOffset + kStages * 2 * BQ * 4;
+  const uint32_t kv_bar = bars + 16 * kStages;
+  auto full_bar = [&](int s) { return bars + 8 * s; };
+  auto empty_bar = [&](int s) { return bars + 8 * (kStages + s); };
 
-  const int kt = blockIdx.x;
-  const int b = blockIdx.y / p.Hkv;
-  const int hkv = blockIdx.y % p.Hkv;
+  // kv heads in L2-sized groups; in a group, key tile 0, whose causal walk
+  // is longest, first.
+  const HeadTile order = head_tile(blockIdx.x, (p.Tk + BK - 1) / BK, p.B * p.Hkv, p.head_group);
+  const int b = order.head / p.Hkv;
+  const int hkv = order.head % p.Hkv;
+  const int k0 = order.tile * BK;
   const int rep = p.H / p.Hkv;
+  const int n_q = (p.Tq + BQ - 1) / BQ;
+  // Lowest query tile that can see this key tile: earlier ones are masked.
+  const int first = p.causal ? min(k0 / BQ, n_q) : 0;
+  const int per_head = n_q - first;
+  const int n_iter = rep * per_head;  // (query head, query tile) pairs
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int k0 = kt * BK;
-  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
-  const int key1 = key0 + 8;
 
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.skb + hkv * p.skh;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.svb + hkv * p.svh;
-  load_tile_bf16<D>(Ks, BK, k, p.skt, k0, p.Tk);
-  load_tile_bf16<D>(Vs, BK, v, p.svt, k0, p.Tk);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar(s), 32);  // every producer lane, after its rows
+      mbar_init(empty_bar(s), 4 * Tiles::kWG);  // one arrival per consumer warp
+    }
+    mbar_init(kv_bar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+  if (warp == 4 * Tiles::kWG) {
+    // Producer warp: lane 0 issues the TMA loads, every lane loads rows of
+    // lse (in log2 units) and delta.
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_bar, 2 * Tiles::kKVBytes);
+      for (int pn = 0; pn < Tiles::kPanels; ++pn) {
+        tma_load(k_s + pn * BK * RB, &tm_k, kv_bar, pn * kCols, k0, hkv, b);
+        tma_load(v_s + pn * BK * RB, &tm_v, kv_bar, pn * kCols, k0, hkv, b);
+      }
+    }
+    for (int it = 0; it < n_iter; ++it) {
+      const int h = hkv * rep + it / per_head;
+      const int q0 = (first + it % per_head) * BQ;
+      const int s = it % kStages;
+      mbar_wait(empty_bar(s), ((it / kStages) & 1) ^ 1);
+      const float* lse = p.lse + ((long long)b * p.H + h) * p.Tq;
+      const float* delta = p.delta + ((long long)b * p.H + h) * p.Tq;
+      for (int i = lane; i < BQ; i += 32) {
+        const bool in = q0 + i < p.Tq;
+        lse_s[s * BQ + i] = in ? lse[q0 + i] * kLog2e : 0.f;
+        delta_s[s * BQ + i] = in ? delta[q0 + i] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full_bar(s), 2 * Tiles::kQBytes);
+        const uint32_t q_st = qd_s + 2 * s * Tiles::kQBytes;
+        const uint32_t do_st = q_st + Tiles::kQBytes;
+        for (int pn = 0; pn < Tiles::kPanels; ++pn) {
+          tma_load(q_st + pn * BQ * RB, &tm_q, full_bar(s), pn * kCols, q0, h, b);
+          tma_load(do_st + pn * BQ * RB, &tm_do, full_bar(s), pn * kCols, q0, h, b);
+        }
+      } else {
+        mbar_arrive(full_bar(s));
+      }
+    }
+    return;
   }
 
-  const int num_q_tiles = (p.Tq + BQ - 1) / BQ;
-  // Lowest Q tile that can see this K tile: earlier ones are fully masked.
-  const int first = p.causal ? k0 / BQ : 0;
+  // Consumers: warpgroup wg owns keys [k0 + 64 wg, k0 + 64 wg + 64).
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int kw0 = k0 + 64 * wg;
+  const int key0 = kw0 + 16 * (warp % 4) + g;  // this thread's keys: key0, key0 + 8
+  const int key1 = key0 + 8;
+  const float c = p.scale * kLog2e;  // scores -> log2 units
+  const uint32_t k_wg = k_s + 64 * wg * RB;
+  const uint32_t v_wg = v_s + 64 * wg * RB;
 
-  for (int h = hkv * rep; h < (hkv + 1) * rep; ++h) {
-    const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.sqb + h * p.sqh;
-    const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) + b * p.sdob + h * p.sdoh;
-    const float* lse = p.lse + ((long long)b * p.H + h) * p.Tq;
-    const float* delta = p.delta + ((long long)b * p.H + h) * p.Tq;
-
-    for (int qt = first; qt < num_q_tiles; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the previous tile is no longer read
-      load_tile_bf16<D>(Qs, BQ, q, p.sqt, q0, p.Tq);
-      load_tile_bf16<D>(dOs, BQ, dout, p.sdot, q0, p.Tq);
-      for (int i = threadIdx.x; i < BQ; i += kThreads) {
-        const bool in = q0 + i < p.Tq;
-        lse_s[i] = in ? lse[q0 + i] : 0.f;
-        delta_s[i] = in ? delta[q0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries.
-      float s[BQ / 8][4], dp[BQ / 8][4];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt) {
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(kv_bar, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int q0 = (first + it % per_head) * BQ;
+    const int s = it % kStages;
+    mbar_wait(full_bar(s), (it / kStages) & 1);
+    // A query tile wholly before this warpgroup's keys sees none of them.
+    if (!(p.causal && q0 + BQ - 1 < kw0)) {
+      const uint32_t q_st = qd_s + 2 * s * Tiles::kQBytes;
+      const uint32_t do_st = q_st + Tiles::kQBytes;
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x BQ queries each.
+      float st[BQ / 2], dpt[BQ / 2];
+      wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+      for (int kc = 0; kc < D / 16; ++kc) {
+        const int pn = kc * 16 / kCols;                 // panel
+        const uint32_t off = ((kc * 16) % kCols) * 2;   // bytes along the row
+        wgmma_ss<BQ>(st, desc_kmajor(k_wg + pn * BK * RB + off, RB),
+                     desc_kmajor(q_st + pn * BQ * RB + off, RB), kc);
       }
 #pragma unroll
       for (int kc = 0; kc < D / 16; ++kc) {
-        uint32_t ka[4], va[4];
-        load_a_frag<D>(ka, Ks, warp * 16, kc * 16, g, t);
-        load_a_frag<D>(va, Vs, warp * 16, kc * 16, g, t);
-#pragma unroll
-        for (int nt = 0; nt < BQ / 8; ++nt) {
-          const __nv_bfloat16* qrow = Qs + (nt * 8 + g) * LD + kc * 16 + 2 * t;
-          const __nv_bfloat16* drow = dOs + (nt * 8 + g) * LD + kc * 16 + 2 * t;
-          mma_bf16(s[nt], ka, ld32(qrow), ld32(qrow + 8));
-          mma_bf16(dp[nt], va, ld32(drow), ld32(drow + 8));
-        }
+        const int pn = kc * 16 / kCols;
+        const uint32_t off = ((kc * 16) % kCols) * 2;
+        wgmma_ss<BQ>(dpt, desc_kmajor(v_wg + pn * BK * RB + off, RB),
+                     desc_kmajor(do_st + pn * BQ * RB + off, RB), kc);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
 
-      // P^T (into s) and dS^T (into dp), element by element.
+      // P^T (into st) and dS^T (into dpt), element by element.
+      const float* lse_t = lse_s + s * BQ;
+      const float* delta_t = delta_s + s * BQ;
+      const bool masked = q0 + BQ > p.Tq || kw0 + 64 > p.Tk || (p.causal && q0 < kw0 + 63);
 #pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt) {
+      for (int i = 0; i < BQ / 8; ++i) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = nt * 8 + 2 * t + (e & 1);
-          const int query = q0 + col;
-          const int key = (e < 2) ? key0 : key1;
-          bool keep = query < p.Tq && key < p.Tk;
-          if (p.causal) keep = keep && (query >= key);
-          const float pr = keep ? expf(p.scale * s[nt][e] - lse_s[col]) : 0.f;
-          s[nt][e] = pr;
-          dp[nt][e] = pr * (dp[nt][e] - delta_s[col]) * p.scale;
+          const int col = 8 * i + 2 * t + (e & 1);
+          float pr = exp2_fast(fmaf(st[4 * i + e], c, -lse_t[col]));
+          if (masked) {
+            const int query = q0 + col;
+            const int key = e < 2 ? key0 : key1;
+            if (query >= p.Tq || key >= p.Tk || (p.causal && query < key)) pr = 0.f;
+          }
+          st[4 * i + e] = pr;
+          dpt[4 * i + e] = pr * (dpt[4 * i + e] - delta_t[col]) * p.scale;
         }
       }
 
-      // dV += P^T dO and dK += dS^T Q over 16-query chunks. B fragments of
-      // dO and Q (K x N = queries x D) come from 16-bit loads of the
-      // row-major tiles.
+      // dV += P^T dO and dK += dS^T Q, 16 queries a product.
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
       for (int kc = 0; kc < BQ / 16; ++kc) {
-        uint32_t pa[4], da[4];
-        pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-        pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-        pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-        pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-        da[0] = pack_bf16(dp[2 * kc][0], dp[2 * kc][1]);
-        da[1] = pack_bf16(dp[2 * kc][2], dp[2 * kc][3]);
-        da[2] = pack_bf16(dp[2 * kc + 1][0], dp[2 * kc + 1][1]);
-        da[3] = pack_bf16(dp[2 * kc + 1][2], dp[2 * kc + 1][3]);
-        const int r = kc * 16 + 2 * t;
 #pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
-          const int col = dt * 8 + g;
-          mma_bf16(dv[dt], pa,
-                   pack_bf16_raw(dOs[r * LD + col], dOs[(r + 1) * LD + col]),
-                   pack_bf16_raw(dOs[(r + 8) * LD + col], dOs[(r + 9) * LD + col]));
-          mma_bf16(dk[dt], da,
-                   pack_bf16_raw(Qs[r * LD + col], Qs[(r + 1) * LD + col]),
-                   pack_bf16_raw(Qs[(r + 8) * LD + col], Qs[(r + 9) * LD + col]));
+        for (int r = 0; r < 4; ++r) {
+          pa[kc][r] = pack_bf16(st[8 * kc + 2 * r], st[8 * kc + 2 * r + 1]);
+          da[kc][r] = pack_bf16(dpt[8 * kc + 2 * r], dpt[8 * kc + 2 * r + 1]);
         }
       }
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        wgmma_rs<D>(dv, pa[kc], desc_mnmajor(do_st + kc * 16 * RB, RB, BQ * RB));
+      }
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc) {
+        wgmma_rs<D>(dk, da[kc], desc_mnmajor(q_st + kc * 16 * RB, RB, BQ * RB));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
     }
+    // This warp is done with the stage.
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar(s));
   }
 
   __nv_bfloat16* dkp = static_cast<__nv_bfloat16*>(p.dk) + b * p.sgb + hkv * p.sgh;
   __nv_bfloat16* dvp = static_cast<__nv_bfloat16*>(p.dv) + b * p.sgb + hkv * p.sgh;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = 8 * i + 2 * t;
     if (key0 < p.Tk) {
-      *reinterpret_cast<uint32_t*>(dkp + key0 * p.sgt + col) = pack_bf16(dk[dt][0], dk[dt][1]);
-      *reinterpret_cast<uint32_t*>(dvp + key0 * p.sgt + col) = pack_bf16(dv[dt][0], dv[dt][1]);
+      *reinterpret_cast<uint32_t*>(dkp + key0 * p.sgt + col) = pack_bf16(dk[4 * i], dk[4 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dvp + key0 * p.sgt + col) = pack_bf16(dv[4 * i], dv[4 * i + 1]);
     }
     if (key1 < p.Tk) {
-      *reinterpret_cast<uint32_t*>(dkp + key1 * p.sgt + col) = pack_bf16(dk[dt][2], dk[dt][3]);
-      *reinterpret_cast<uint32_t*>(dvp + key1 * p.sgt + col) = pack_bf16(dv[dt][2], dv[dt][3]);
+      *reinterpret_cast<uint32_t*>(dkp + key1 * p.sgt + col) =
+          pack_bf16(dk[4 * i + 2], dk[4 * i + 3]);
+      *reinterpret_cast<uint32_t*>(dvp + key1 * p.sgt + col) =
+          pack_bf16(dv[4 * i + 2], dv[4 * i + 3]);
     }
   }
 }
@@ -574,14 +664,33 @@ cudaError_t launch_with_smem(Kernel kernel, dim3 grid, size_t smem, cudaStream_t
 }
 
 template <int D>
-cudaError_t launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == 1) {
-    // 32-query tiles at D=128 keep S^T, dP^T, dK and dV within the registers.
-    constexpr int BQ = D == 128 ? 32 : 64;
-    const size_t smem = (2 * 64 + 2 * BQ) * (D + 8) * sizeof(__nv_bfloat16) + 2 * BQ * sizeof(float);
-    dim3 grid((p.Tk + 63) / 64, p.B * p.Hkv);
-    return launch_with_smem(flash_bwd_dkv_bf16_kernel<D, BQ>, grid, smem, stream, p);
+cudaError_t launch_dkv_bf16(Params p, cudaStream_t stream) {
+  using Tiles = DkvTiles<D>;
+  const int rep = p.H / p.Hkv;
+  p.head_group = l2_head_group(4LL * D * (p.Tk + rep * p.Tq) + 8LL * rep * p.Tq, p.B * p.Hkv);
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = make_panel_map(&tq, p.q, p.B, p.Tq, p.H, D, p.sqb, p.sqt, p.sqh, Tiles::kBQ);
+  if (err == cudaSuccess) {
+    err = make_panel_map(&tk, p.k, p.B, p.Tk, p.Hkv, D, p.skb, p.skt, p.skh, Tiles::kBK);
   }
+  if (err == cudaSuccess) {
+    err = make_panel_map(&tv, p.v, p.B, p.Tk, p.Hkv, D, p.svb, p.svt, p.svh, Tiles::kBK);
+  }
+  if (err == cudaSuccess) {
+    err = make_panel_map(&tdo, p.dout, p.B, p.Tq, p.H, D, p.sdob, p.sdot, p.sdoh, Tiles::kBQ);
+  }
+  auto kernel = flash_bwd_dkv_bf16_kernel<D>;
+  static bool smem_set = false;
+  if (err == cudaSuccess) err = allow_smem(kernel, Tiles::kSmem, &smem_set);
+  if (err != cudaSuccess) return err;
+  const int blocks = (p.Tk + Tiles::kBK - 1) / Tiles::kBK * p.B * p.Hkv;
+  kernel<<<blocks, Tiles::kThreads, Tiles::kSmem, stream>>>(tq, tk, tv, tdo, p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
+  if (dtype == 1) return launch_dkv_bf16<D>(p, stream);
   const size_t smem = ((2 * kFRows + 2 * kFTile) * (D + 1) + 2 * kFTile) * sizeof(float);
   dim3 grid((p.Tk + kFRows - 1) / kFRows, p.B * p.Hkv);
   return launch_with_smem(flash_bwd_dkv_f32_kernel<D>, grid, smem, stream, p);
@@ -624,7 +733,7 @@ int rt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
   if (bad_args(B, Tq, Tk, H, Hkv, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, dout, lse, delta, nullptr, dk, dv, B, Tq, Tk, H, Hkv,
            sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdob, sdot, sdoh,
-           sgb, sgt, sgh, causal, scale};
+           sgb, sgt, sgh, causal, scale, 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return static_cast<int>(launch_dkv<16>(p, dtype, s));
@@ -647,7 +756,7 @@ int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dou
   if (bad_args(B, Tq, Tk, H, Hkv, dtype)) return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, Tq, Tk, H, Hkv,
            sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sdob, sdot, sdoh,
-           sgb, sgt, sgh, causal, scale};
+           sgb, sgt, sgh, causal, scale, 1};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return static_cast<int>(launch_dq<16>(p, dtype, s));

@@ -143,6 +143,8 @@ def test_kernel_ready_copies_only_misaligned_views():
         (1, 100, 4, 2, 32, True, 64),    # GQA, ragged
         (1, 100, 4, 2, 32, False, 64),
         (1, 96, 2, 2, 16, True, 64),     # ragged T
+        (2, 77, 4, 2, 16, True, 128),    # odd T inside one 128-row tile, GQA
+        (1, 300, 2, 2, 16, True, 128),   # 128-row tiles, ragged third tile
     ],
 )
 def test_flash_ref_lse_matches_jax(B, T, H, Hkv, D, causal, block):
@@ -168,6 +170,8 @@ def test_flash_ref_lse_matches_jax(B, T, H, Hkv, D, causal, block):
         (1, 100, 4, 2, 32, True, 64),    # test_flash_bwd_kernel_gqa_and_ragged
         (1, 100, 4, 2, 32, False, 64),
         (1, 96, 2, 2, 16, True, 64),     # ragged T
+        (2, 77, 4, 2, 16, True, 128),    # odd T inside one 128-row tile, GQA
+        (1, 300, 2, 2, 16, True, 128),   # 128-row tiles, ragged third tile
     ],
 )
 def test_flash_grads_match_jax(B, T, H, Hkv, D, causal, block):

@@ -10,6 +10,7 @@ import os
 import pickle
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -201,6 +202,28 @@ def test_stream_and_model_source_bundle(np_params, tmp_path):
     finally:
         eng.shutdown()
     assert streamed == whole == _run(_engine(np_params), [PROMPTS[0]], p)[0]
+
+
+def test_submit_does_not_wait_for_the_loop_lock(np_params):
+    """A running loop holds the engine's lock for a whole tick and takes it
+    again at once: submit() hands over without that lock, so a burst is
+    queued while a tick runs and does not trickle in behind ticks."""
+    p = SamplingParams(max_new_tokens=4)
+    eng = _engine(np_params)
+    futs = []
+    try:
+        eng.generate(PROMPTS[0], p)    # the loop is up, and stays up idle
+        with eng._lock:                # as a tick in progress holds it
+            th = threading.Thread(target=lambda: futs.extend(
+                eng.submit(pr, p) for pr in PROMPTS), daemon=True)
+            th.start()
+            th.join(10)
+            queued = not th.is_alive()
+        assert queued, "submit() waited for the loop's lock"
+        got = [list(f.result(120)) for f in futs]
+    finally:
+        eng.shutdown()
+    assert got == _run(_engine(np_params), PROMPTS, p)
 
 
 def test_prompt_too_long_rejected(np_params):
