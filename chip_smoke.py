@@ -9,12 +9,14 @@ Phases, in order; any failure exits non-zero:
    versions; TF32 off; every kernel built from ``ray_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, all started together), with no register
    spills in ptxas's report, and the SASS of every wgmma kernel instance
-   (K1/K2's bf16 forward, K3's bf16 body) holding ``HGMMA`` and ``UTMALDG``
-   instructions (``cuobjdump``): the Hopper tensor-core and TMA paths.
+   (K1/K2's bf16 forward, K3's and K4's bf16 bodies) holding ``HGMMA`` and
+   ``UTMALDG`` instructions (``cuobjdump``): the Hopper tensor-core and TMA
+   paths.
 2. K1 (the flash-attention forward) against its plain blockwise version on
    the card, over the serving shapes and the edge cases; then K2 (the
-   forward with lse) and K3/K4 (the backward) against theirs, over the
-   same cases and the training shape.
+   forward with lse), K4 (dQ and delta = rowsum(dO * O)) and K3 (dK, dV
+   from K4's delta) against theirs, over the same cases and the training
+   shape.
 3. The serving path, part one: the GPT-2-small full-sequence forward
    (B=2, T=256) through K1, in bf16 and f32, against the dense version;
    one forward launches K1 once per layer.
@@ -31,7 +33,8 @@ Phases, in order; any failure exits non-zero:
    path: loss and grad_norm per step within 2e-4 relative.
 7. Numbers: K1 at the serving entry shape and K2-K4 at the training shape
    beside their bounds, plain versions and ``scaled_dot_product_attention``
-   (forward; backward through autograd), decode tokens/s, ms per tick at 8
+   (forward; backward through autograd, both from CUDA graphs), K3 + K4
+   against SDPA's whole backward, decode tokens/s, ms per tick at 8
    active slots, prefill ms per bucket; train-step ms, tokens/s, MFU
    against the data sheet and against a timed bf16 matmul chain, and peak
    memory.
@@ -78,7 +81,7 @@ TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-2)}
 # are exact in f32): only the order of the sums differs, so 2e-5 holds for
 # both dtypes.
 LSE_TOL = (2e-5, 2e-5)
-# K3/K4 against their plain version: f32 keeps the reference's gradient
+# K3/K4 against their plain versions: f32 keeps the reference's gradient
 # bound 2e-4 (tests/test_attention.py:48). bf16: both sides cast P and dS to
 # bf16 before their products from f32 values that agree to the summation
 # order (a rounding flip is rare), and each rounds its output to bf16 (2^-8
@@ -155,21 +158,23 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, reps: int = 100) -> float:
+def graph_ms(fn, reps: int = 100, stream=None) -> float:
     """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
     graph and replayed, so no host work sits between the launches (the
     eager ``cuda_ms`` of a single small kernel measures the host's
-    dispatch instead)."""
+    dispatch instead). Warm-up and capture run on ``stream`` (a new side
+    stream by default); a backward through autograd runs on its forward's
+    stream, so time it with the stream its forward ran on."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             fn()
     return cuda_ms(graph.replay, iters=5, warmup=1) / reps
@@ -182,7 +187,7 @@ KERNEL_WORK = {
     "flash_fwd": dict(q=2, kv=2, f32_rows=0, products=2),          # q, o | k, v
     "flash_fwd_lse": dict(q=2, kv=2, f32_rows=1, products=2),      # + lse
     "flash_bwd_dkv": dict(q=2, kv=4, f32_rows=2, products=4),      # q, dO | k, v, dk, dv | lse, delta
-    "flash_bwd_dq": dict(q=3, kv=2, f32_rows=2, products=3),       # q, dO, dq | k, v | lse, delta
+    "flash_bwd_dq": dict(q=4, kv=2, f32_rows=2, products=3),       # q, dO, O, dq | k, v | lse, delta
 }
 
 
@@ -208,9 +213,10 @@ def attn_bound_ms(kernel, B, Tq, Tk, H, Hkv, D, causal, dtype_name):
 
 # Kernels built on wgmma and TMA: {symbol: (label, instances)}. Each
 # instance's SASS must hold both; the forward has one per head dim with and
-# without lse, K3 one per head dim.
+# without lse, K3 and K4 one per head dim.
 HOPPER_KERNELS = {"flash_fwd_bf16_kernel": ("K1/K2 bf16 forward", 8),
-                  "flash_bwd_dkv_bf16_kernel": ("K3 bf16", 4)}
+                  "flash_bwd_dkv_bf16_kernel": ("K3 bf16", 4),
+                  "flash_bwd_dq_bf16_kernel": ("K4 bf16", 4)}
 
 
 def sass_counts(lib: str, cuobjdump: str, ops=("HGMMA", "UTMALDG"),
@@ -361,10 +367,12 @@ def main() -> int:
         check(nbad == 0, f"K1 {name} {dname}: {nbad} elements outside the "
               f"bound, max err {max_err:.3e}")
 
-    # K2 against flash_attention_ref(with_lse=True); K3/K4 against
-    # flash_attention_bwd_ref on the same q, k, v, dO and the kernel's own
-    # out and lse. K1's cases plus the training shape (the model's fused
-    # qkv views).
+    # K2 against flash_attention_ref(with_lse=True); K4 (dq, delta) against
+    # flash_bwd_dq_ref and K3 (dk, dv) against flash_bwd_dkv_ref, each on
+    # the inputs its kernel got: the same q, k, v, dO, the kernel's own out
+    # and lse, and for K3 K4's delta. delta is an f32 sum over D of the same
+    # products in another order, so it keeps LSE_TOL. K1's cases plus the
+    # training shape (the model's fused qkv views).
     train_case = ("train", *TRAIN_BATCH[:1], TRAIN_BATCH[1], MODEL["num_heads"],
                   MODEL["num_heads"], MODEL["embed_dim"] // MODEL["num_heads"], True)
     train_errs = {}
@@ -375,15 +383,17 @@ def main() -> int:
         do = torch.randn(B, T, H, D, device=dev, generator=gen).to(dtype)
         with torch.no_grad():
             out, lse = attn._flash_fwd_cuda(q, k, v, causal, with_lse=True)
-            dq, dk, dv = attn._flash_bwd_cuda(q, k, v, out, lse, do, causal)
+            dq, dk, dv, delta = attn._flash_bwd_cuda(q, k, v, out, lse, do,
+                                                     causal)
             torch.cuda.synchronize()
             ref_out, ref_lse = attn.flash_attention_ref(q, k, v, causal,
                                                         with_lse=True)
-            rq, rk, rv = attn.flash_attention_bwd_ref(q, k, v, out, lse, do,
-                                                      causal)
+            rq, rdelta = attn.flash_bwd_dq_ref(q, k, v, out, lse, do, causal)
+            rk, rv = attn.flash_bwd_dkv_ref(q, k, v, delta, lse, do, causal)
         errs_case = {
             "out": close(out, ref_out, TOL[dname]),
             "lse": close(lse, ref_lse, LSE_TOL),
+            "delta": close(delta, rdelta, LSE_TOL),
             "dq": close(dq, rq, GRAD_TOL[dname]),
             "dk": close(dk, rk, GRAD_TOL[dname]),
             "dv": close(dv, rv, GRAD_TOL[dname]),
@@ -391,17 +401,17 @@ def main() -> int:
         log(f"K2-K4 {name} {dname} B={B} T={T} H={H} Hkv={Hkv} D={D} "
             f"causal={causal}: max|kernel-plain| "
             + ", ".join(f"{n} {e:.3e}" for n, (e, _) in errs_case.items())
-            + f" (bounds out {TOL[dname]}, lse {LSE_TOL}, grads {GRAD_TOL[dname]} "
+            + f" (bounds out {TOL[dname]}, lse and delta {LSE_TOL}, grads {GRAD_TOL[dname]} "
             "as atol + rtol|plain|)")
         for n, (e, nbad) in errs_case.items():
             check(nbad == 0, f"K2-K4 {name} {dname} {n}: {nbad} elements "
                   f"outside the bound, max err {e:.3e}")
-        check(lse.shape == (B, H, T) and all(
-            bool(torch.isfinite(x).all()) for x in (out, lse, dq, dk, dv)),
+        check(lse.shape == (B, H, T) and delta.shape == (B, H, T) and all(
+            bool(torch.isfinite(x).all()) for x in (out, lse, delta, dq, dk, dv)),
             f"K2-K4 {name}: bad output")
         if name == "train" and dtype == bf16:
             train_errs = {n: e for n, (e, _) in errs_case.items()}
-    del q, k, v, do, out, lse, dq, dk, dv, ref_out, ref_lse, rq, rk, rv
+    del q, k, v, do, out, lse, delta, dq, dk, dv, ref_out, ref_lse, rq, rdelta, rk, rv
     phase_done(2)
 
     # ------------------------------- 3. main path: GPT-2-small full forward
@@ -695,10 +705,8 @@ def main() -> int:
     check(main_launches > 0, "K1 was not launched on the main path")
 
     # K2-K4 at the training shape (one layer's call), each launch replayed
-    # from a CUDA graph; the plain versions; SDPA forward (graph replay) and
-    # its backward through autograd (eager, back to back: at this shape the
-    # device time of each call exceeds its dispatch), timed only as a
-    # yardstick.
+    # from a CUDA graph; the plain versions; SDPA forward and its backward
+    # through autograd, both from CUDA graphs, timed only as a yardstick.
     B, T = TRAIN_BATCH
     H = MODEL["num_heads"]
     D = MODEL["embed_dim"] // H
@@ -708,26 +716,31 @@ def main() -> int:
         k2_ms = graph_ms(lambda: attn._flash_fwd_cuda(q, k, v, True, with_lse=True),
                          reps=20)
         out, lse = attn._flash_fwd_cuda(q, k, v, True, with_lse=True)
-        prep = attn._flash_bwd_prepare(q, k, v, out, lse, do)
-        dq = torch.empty_like(out)
-        dk, dv = torch.empty_like(out), torch.empty_like(out)
-        k3_ms = graph_ms(lambda: attn._flash_bwd_launch(
-            "flash_bwd_dkv", *prep, (dk, dv), True), reps=20)
-        k4_ms = graph_ms(lambda: attn._flash_bwd_launch(
-            "flash_bwd_dq", *prep, (dq,), True), reps=20)
+        q, k, v, out, do, lse = attn._flash_bwd_prepare(q, k, v, out, lse, do)
+        dq, dk, dv = (torch.empty_like(out) for _ in range(3))
+        delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+        k4_ms = graph_ms(lambda: attn._flash_bwd_dq_launch(
+            q, k, v, out, do, lse, dq, delta, True), reps=20)
+        k3_ms = graph_ms(lambda: attn._flash_bwd_dkv_launch(
+            q, k, v, do, lse, delta, dk, dv, True), reps=20)
         plain_fwd_ms = cuda_ms(
             lambda: attn.flash_attention_ref(q, k, v, True, with_lse=True), 3, 1)
-        plain_bwd_ms = cuda_ms(
-            lambda: attn.flash_attention_bwd_ref(q, k, v, out, lse, do, True), 3, 1)
+        plain_dq_ms = cuda_ms(
+            lambda: attn.flash_bwd_dq_ref(q, k, v, out, lse, do, True), 3, 1)
+        plain_dkv_ms = cuda_ms(
+            lambda: attn.flash_bwd_dkv_ref(q, k, v, delta, lse, do, True), 3, 1)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa_fwd_ms = graph_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
             reps=20)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
-    o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     do_t = do.transpose(1, 2)
-    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        o_sdpa, (qg, kg, vg), do_t, retain_graph=True), 20)
+    sdpa_bwd_ms = graph_ms(lambda: torch.autograd.grad(
+        o_sdpa, (qg, kg, vg), do_t, retain_graph=True), reps=20, stream=side)
     del o_sdpa, qg, kg, vg
     bounds = {n: attn_bound_ms(n, B, T, T, H, H, D, True, "bfloat16")
               for n in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}
@@ -737,10 +750,11 @@ def main() -> int:
             f"{ms:.4f} ms (graph replay); bound {bounds[n][0]:.5f} ms "
             f"({bounds[n][1]}), {bounds[n][0] / ms:.1%} of it")
     log(f"[{card}] plain blockwise forward with lse {plain_fwd_ms:.4f} ms, "
-        f"backward (dq, dk, dv together) {plain_bwd_ms:.4f} ms; sdpa forward "
-        f"{sdpa_fwd_ms:.4f} ms (graph replay), backward (dq, dk, dv together) "
-        f"{sdpa_bwd_ms:.4f} ms (eager, back to back); K3 + K4 "
-        f"{k3_ms + k4_ms:.4f} ms")
+        f"dq and delta {plain_dq_ms:.4f} ms, dk and dv {plain_dkv_ms:.4f} ms; "
+        f"sdpa forward {sdpa_fwd_ms:.4f} ms, backward (dq, dk, dv together) "
+        f"{sdpa_bwd_ms:.4f} ms (both graph replay); K3 + K4 (delta included) "
+        f"{k3_ms + k4_ms:.4f} ms, {(k3_ms + k4_ms) / sdpa_bwd_ms:.2f}x sdpa's "
+        f"backward")
 
     # The train step: median of steps 1.. (step 0 includes warm-up).
     step_ms = float(np.median(step_s[1:])) * 1e3
@@ -772,10 +786,10 @@ def main() -> int:
     for name, line, src, ms, plain, lib_ms, errs in (
             ("flash_fwd_lse", 174, "flash_fwd.cu", k2_ms, plain_fwd_ms,
              sdpa_fwd_ms, ("out", "lse")),
-            ("flash_bwd_dkv", 208, "flash_bwd.cu", k3_ms, plain_bwd_ms,
+            ("flash_bwd_dkv", 208, "flash_bwd.cu", k3_ms, plain_dkv_ms,
              sdpa_bwd_ms, ("dk", "dv")),
-            ("flash_bwd_dq", 265, "flash_bwd.cu", k4_ms, plain_bwd_ms,
-             sdpa_bwd_ms, ("dq",))):
+            ("flash_bwd_dq", 265, "flash_bwd.cu", k4_ms, plain_dq_ms,
+             sdpa_bwd_ms, ("dq", "delta"))):
         check(train_launches[name] > 0, f"{name} was not launched on the "
               "training path")
         kernels.append({

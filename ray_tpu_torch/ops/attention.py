@@ -4,17 +4,19 @@ hand-written CUDA kernels beside their plain blockwise versions.
 Counterpart of ``ray_tpu/ops/attention.py``:
 
 - ``attention_xla``: dense einsum softmax attention, the reference math.
-- ``flash_attention_ref`` and ``flash_attention_bwd_ref``: the blockwise
-  arithmetic of the forward (optionally with its per-row logsumexp) and of
-  the backward in plain PyTorch (the analog of the JAX kernels'
-  ``interpret=True``). The CPU tests and ``chip_smoke.py`` hold the kernels
-  to them.
+- ``flash_attention_ref``, ``flash_bwd_dq_ref`` and ``flash_bwd_dkv_ref``:
+  the blockwise arithmetic of the forward (optionally with its per-row
+  logsumexp) and of each backward kernel in plain PyTorch (the analog of
+  the JAX kernels' ``interpret=True``); ``flash_attention_bwd_ref``
+  composes the two backward ones. The CPU tests and ``chip_smoke.py`` hold
+  the kernels to them.
 - ``flash_attention``: the wrapper, the analog of the JAX ``custom_vjp``.
   Without a gradient to record, CUDA tensors launch K1 (the forward,
   ``csrc/flash_fwd.cu``). With one, the forward is the custom op
   ``ray_tpu_torch::flash_fwd_lse``: it launches K2 (the same forward, also
-  writing lse) and saves (q, k, v, out, lse), and its backward launches K3
-  (dK, dV) and K4 (dQ) from ``csrc/flash_bwd.cu``. CPU tensors, and
+  writing lse) and saves (q, k, v, out, lse), and its backward launches K4
+  (dQ, and delta = rowsum(dO * O)) and then K3 (dK, dV, from that delta),
+  from ``csrc/flash_bwd.cu``. CPU tensors, and
   ``interpret=True`` on any device, run the plain versions instead. There is
   no fallback from a kernel to a plain version.
 - ``attention``: the dispatcher.
@@ -25,6 +27,7 @@ Shapes follow [batch, seq, heads, head_dim] throughout; lse is
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import Optional, Tuple, Union
 
 import torch
@@ -156,23 +159,19 @@ def flash_attention_ref(q, k, v, causal: bool = True,
     return out
 
 
-def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = True,
-                            block_q: int = DEFAULT_BLOCK_Q,
-                            block_k: int = DEFAULT_BLOCK_K):
-    """The backward kernels' arithmetic in plain PyTorch, block by block
-    (JAX ``_flash_bwd_impl``, attention.py:312-396). Returns (dq, dk, dv) in
-    the inputs' dtype, dk/dv summed over each kv head's query heads.
+def _bwd_blocks(q, k, v, do, lse, causal: bool, block_q: int, block_k: int):
+    """What the backward plain versions share (JAX ``_flash_bwd_impl``,
+    attention.py:312-396): block sizes and counts, the folded operands
+    ([B*H, T_p, D], kv heads repeated, zero-padded; dO in q's dtype) and
+    ``probs(qi, ki, delta)``, the f32 (P, dS) of query block qi against key
+    block ki, with delta folded to [B*H, Tq_p].
 
-    delta = rowsum(dO * O) in f32. dK/dV: per key block, stream Q/dO blocks
-    from the causal start; P = exp(scale * q.k - lse), forced to 0 for
-    queries at or past Tq, keys at or past Tk and keys above the diagonal;
-    dV += P (cast to dO's dtype)^T dO; dP = dO V^T; dS = P (dP - delta)
-    scale, cast to the input dtype before dK += dS^T Q. dQ: per query block,
-    stream K/V blocks up to the causal limit, dQ += dS K. Products take the
-    input dtype's values with f32 accumulation; the GQA head-group sum is
-    taken in f32 before the cast, as the kernel takes it."""
+    P = exp(scale * q.k - lse), forced to 0 for queries at or past Tq, keys
+    at or past Tk and keys above the diagonal; dP = dO V^T; dS = P (dP -
+    delta) scale. Products take the input dtype's values with f32
+    accumulation."""
     B, Tq, H, D = q.shape
-    Tk, Hkv = k.shape[1], k.shape[2]
+    Tk = k.shape[1]
     block_q = min(block_q, Tq)
     block_k = min(block_k, Tk)
     scale = D ** -0.5
@@ -180,16 +179,13 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = True,
     Tq_p = block_q * ((Tq + block_q - 1) // block_q)
     Tk_p = block_k * ((Tk + block_k - 1) // block_k)
     qf, kf, vf = _fold(q, Tq_p, H), _fold(k, Tk_p, H), _fold(v, Tk_p, H)
-    dof, of = _fold(do.to(q.dtype), Tq_p, H), _fold(out, Tq_p, H)
-    lsef = torch.nn.functional.pad(
-        lse.to(f32).reshape(B * H, Tq), (0, Tq_p - Tq))
-    delta = (dof.to(f32) * of.to(f32)).sum(-1)                 # [B*H, Tq_p]
+    dof = _fold(do.to(q.dtype), Tq_p, H)
+    lsef = torch.nn.functional.pad(lse.to(f32).reshape(B * H, Tq), (0, Tq_p - Tq))
     dev = q.device
     arange_q = torch.arange(block_q, device=dev)
     arange_k = torch.arange(block_k, device=dev)
 
-    def probs(qi, ki):
-        """(P, dS) of query block qi against key block ki, f32."""
+    def probs(qi, ki, delta):
         rq = slice(qi * block_q, (qi + 1) * block_q)
         rk = slice(ki * block_k, (ki + 1) * block_k)
         s = scale * torch.matmul(qf[:, rq].to(f32), kf[:, rk].to(f32).transpose(1, 2))
@@ -204,35 +200,84 @@ def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = True,
         ds = p * (dp - delta[:, rq, None]) * scale
         return p, ds
 
-    n_q, n_k = Tq_p // block_q, Tk_p // block_k
-    dk = torch.zeros((B * H, Tk_p, D), dtype=f32, device=dev)
-    dv = torch.zeros((B * H, Tk_p, D), dtype=f32, device=dev)
-    for ki in range(n_k):
-        start = (ki * block_k) // block_q if causal else 0
-        rk = slice(ki * block_k, (ki + 1) * block_k)
-        for qi in range(start, n_q):
-            rq = slice(qi * block_q, (qi + 1) * block_q)
-            p, ds = probs(qi, ki)
-            dv[:, rk] += torch.matmul(
-                p.to(do.dtype).to(f32).transpose(1, 2), dof[:, rq].to(f32))
-            dk[:, rk] += torch.matmul(
-                ds.to(q.dtype).to(f32).transpose(1, 2), qf[:, rq].to(f32))
-    dq = torch.zeros((B * H, Tq_p, D), dtype=f32, device=dev)
-    for qi in range(n_q):
-        n_iter = n_k
+    return SimpleNamespace(block_q=block_q, block_k=block_k, Tq_p=Tq_p,
+                           Tk_p=Tk_p, n_q=Tq_p // block_q, n_k=Tk_p // block_k,
+                           qf=qf, kf=kf, dof=dof, probs=probs)
+
+
+def flash_bwd_dq_ref(q, k, v, out, lse, do, causal: bool = True,
+                     block_q: int = DEFAULT_BLOCK_Q,
+                     block_k: int = DEFAULT_BLOCK_K):
+    """K4's arithmetic in plain PyTorch, block by block: (dq, delta).
+
+    delta = rowsum(dO * O) in f32, [B, H, Tq] (torch ops here, as JAX
+    computes it in XLA, attention.py:342). dQ: per query block, stream K/V
+    blocks up to the causal limit, dQ += dS K with dS cast to the input
+    dtype (JAX ``_flash_bwd_dq_kernel``, :265); dq in the input dtype."""
+    B, Tq, H, D = q.shape
+    f32 = torch.float32
+    bw = _bwd_blocks(q, k, v, do, lse, causal, block_q, block_k)
+    delta = (bw.dof.to(f32) * _fold(out, bw.Tq_p, H).to(f32)).sum(-1)  # [B*H, Tq_p]
+    dq = torch.zeros((B * H, bw.Tq_p, D), dtype=f32, device=q.device)
+    for qi in range(bw.n_q):
+        n_iter = bw.n_k
         if causal:
-            n_iter = min(n_k, ((qi + 1) * block_q - 1) // block_k + 1)
-        rq = slice(qi * block_q, (qi + 1) * block_q)
+            n_iter = min(bw.n_k, ((qi + 1) * bw.block_q - 1) // bw.block_k + 1)
+        rq = slice(qi * bw.block_q, (qi + 1) * bw.block_q)
         for ki in range(n_iter):
-            rk = slice(ki * block_k, (ki + 1) * block_k)
-            _, ds = probs(qi, ki)
-            dq[:, rq] += torch.matmul(ds.to(q.dtype).to(f32), kf[:, rk].to(f32))
-    dq = _unfold(dq, B, H, Tq)
+            rk = slice(ki * bw.block_k, (ki + 1) * bw.block_k)
+            _, ds = bw.probs(qi, ki, delta)
+            dq[:, rq] += torch.matmul(ds.to(q.dtype).to(f32), bw.kf[:, rk].to(f32))
+    return (_unfold(dq, B, H, Tq).to(q.dtype),
+            delta.reshape(B, H, bw.Tq_p)[..., :Tq])
+
+
+def flash_bwd_dkv_ref(q, k, v, delta, lse, do, causal: bool = True,
+                      block_q: int = DEFAULT_BLOCK_Q,
+                      block_k: int = DEFAULT_BLOCK_K):
+    """K3's arithmetic in plain PyTorch, block by block: (dk, dv) from the
+    given delta ([B, H, Tq] f32; K4's, or ``flash_bwd_dq_ref``'s).
+
+    Per key block, stream Q/dO blocks from the causal start; dV += P (cast
+    to dO's dtype)^T dO, dK += dS (cast to the input dtype)^T Q (JAX
+    ``_flash_bwd_dkv_kernel``, :208). dk/dv are summed over each kv head's
+    query heads in f32 before the cast to the inputs' dtype, as the kernel
+    sums them."""
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    f32 = torch.float32
+    bw = _bwd_blocks(q, k, v, do, lse, causal, block_q, block_k)
+    deltaf = torch.nn.functional.pad(delta.to(f32).reshape(B * H, Tq),
+                                     (0, bw.Tq_p - Tq))
+    dk = torch.zeros((B * H, bw.Tk_p, D), dtype=f32, device=q.device)
+    dv = torch.zeros((B * H, bw.Tk_p, D), dtype=f32, device=q.device)
+    for ki in range(bw.n_k):
+        start = (ki * bw.block_k) // bw.block_q if causal else 0
+        rk = slice(ki * bw.block_k, (ki + 1) * bw.block_k)
+        for qi in range(start, bw.n_q):
+            rq = slice(qi * bw.block_q, (qi + 1) * bw.block_q)
+            p, ds = bw.probs(qi, ki, deltaf)
+            dv[:, rk] += torch.matmul(
+                p.to(do.dtype).to(f32).transpose(1, 2), bw.dof[:, rq].to(f32))
+            dk[:, rk] += torch.matmul(
+                ds.to(q.dtype).to(f32).transpose(1, 2), bw.qf[:, rq].to(f32))
     dk, dv = _unfold(dk, B, H, Tk), _unfold(dv, B, H, Tk)
     if Hkv != H:
         dk = dk.reshape(B, Tk, Hkv, H // Hkv, D).sum(3)
         dv = dv.reshape(B, Tk, Hkv, H // Hkv, D).sum(3)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = True,
+                            block_q: int = DEFAULT_BLOCK_Q,
+                            block_k: int = DEFAULT_BLOCK_K):
+    """The backward kernels' arithmetic in plain PyTorch: ``flash_bwd_dq_ref``
+    (K4, which also gives delta), then ``flash_bwd_dkv_ref`` (K3) on that
+    delta. Returns (dq, dk, dv) in the inputs' dtype, dk/dv summed over each
+    kv head's query heads."""
+    dq, delta = flash_bwd_dq_ref(q, k, v, out, lse, do, causal, block_q, block_k)
+    dk, dv = flash_bwd_dkv_ref(q, k, v, delta, lse, do, causal, block_q, block_k)
+    return dq, dk, dv
 
 
 # ------------------------------------------------------------ CUDA kernels
@@ -257,8 +302,8 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _TAIL = [_I32, ctypes.c_float, _I32, _P]          # causal, scale, dtype, stream
 _FWD_ARGS = {"rt_flash_fwd": [_P] * 5 + [_I32] * 6 + [_I64] * 12 + _TAIL}
 _BWD_ARGS = {
+    "rt_flash_bwd_dq": [_P] * 8 + [_I32] * 6 + [_I64] * 18 + _TAIL,
     "rt_flash_bwd_dkv": [_P] * 8 + [_I32] * 6 + [_I64] * 15 + _TAIL,
-    "rt_flash_bwd_dq": [_P] * 7 + [_I32] * 6 + [_I64] * 15 + _TAIL,
 }
 
 
@@ -329,52 +374,62 @@ def _flash_fwd_cuda(q, k, v, causal: bool, with_lse: bool = False):
     return (o, lse) if with_lse else o
 
 
-def _flash_bwd_launch(kernel: str, q, k, v, do, lse, delta, outs,
-                      causal: bool) -> None:
-    """Launch K3 (``kernel="flash_bwd_dkv"``, outs = (dk, dv)) or K4
-    (``"flash_bwd_dq"``, outs = (dq,)) into preallocated contiguous outputs.
-    q, k, v and do must be kernel-ready; lse and delta [B, H, Tq] f32,
-    contiguous."""
+def _flash_bwd_launch(kernel: str, pointers, strided, q, k, causal: bool) -> None:
+    """Launch ``rt_<kernel>`` on the pointers of ``pointers`` and the [B, T,
+    heads, D] strides of ``strided``, in the C interface's order."""
     B, Tq, H, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     lib = _lib("flash_bwd", _BWD_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, "rt_" + kernel)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
-            B, Tq, Tk, H, Hkv, D, *_strides(q, k, v, do, outs[0]),
-            int(bool(causal)), float(D ** -0.5), _DTYPE_CODES[q.dtype], stream,
+            *(t.data_ptr() for t in pointers), B, Tq, Tk, H, Hkv, D,
+            *_strides(*strided), int(bool(causal)), float(D ** -0.5),
+            _DTYPE_CODES[q.dtype], stream,
         )
     _raise_on(lib, rc, kernel)
     launches[kernel] += 1
 
 
+def _flash_bwd_dq_launch(q, k, v, out, do, lse, dq, delta, causal: bool) -> None:
+    """K4: dq and delta = rowsum(dO * O) ([B, H, Tq] f32) into preallocated
+    contiguous outputs. The inputs are ``_flash_bwd_prepare``'s."""
+    _flash_bwd_launch("flash_bwd_dq", (q, k, v, do, out, lse, delta, dq),
+                      (q, k, v, do, out, dq), q, k, causal)
+
+
+def _flash_bwd_dkv_launch(q, k, v, do, lse, delta, dk, dv, causal: bool) -> None:
+    """K3: dk and dv into preallocated contiguous outputs, from K4's delta."""
+    _flash_bwd_launch("flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
+                      (q, k, v, do, dk), q, k, causal)
+
+
 def _flash_bwd_prepare(q, k, v, out, lse, do):
-    """Kernel-ready (q, k, v, do), lse and delta = rowsum(dO * O) in f32
-    ([B, H, Tq], contiguous). delta is torch ops, as the JAX package
-    computes it in XLA outside its kernels (attention.py:342)."""
+    """Kernel-ready (q, k, v, out, do), all in q's dtype, and lse
+    ([B, H, Tq] f32, contiguous)."""
     _check_inputs(q, k, v)
     B, Tq, H, _ = q.shape
-    if out.shape != q.shape or lse.shape != (B, H, Tq):
+    if out.shape != q.shape or lse.shape != (B, H, Tq) or do.shape != q.shape:
         raise ValueError(f"flash backward: out {tuple(out.shape)} / lse "
-                         f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+                         f"{tuple(lse.shape)} / do {tuple(do.shape)} do not "
+                         f"match q {tuple(q.shape)}")
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
-    do = _kernel_ready(do.to(q.dtype))
-    lse = lse.to(torch.float32).contiguous()
-    delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-    return q, k, v, do, lse, delta
+    out, do = _kernel_ready(out.to(q.dtype)), _kernel_ready(do.to(q.dtype))
+    return q, k, v, out, do, lse.to(torch.float32).contiguous()
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, causal: bool):
-    """K3 then K4: (dq, dk, dv)."""
-    q, k, v, do, lse, delta = _flash_bwd_prepare(q, k, v, out, lse, do)
+    """K4, which also writes delta = rowsum(dO * O), then K3, which reads
+    it: (dq, dk, dv, delta)."""
+    q, k, v, out, do, lse = _flash_bwd_prepare(q, k, v, out, lse, do)
+    B, Tq, H, _ = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    _flash_bwd_launch("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal)
-    _flash_bwd_launch("flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal)
-    return dq, dk, dv
+    _flash_bwd_dq_launch(q, k, v, out, do, lse, dq, delta, causal)
+    _flash_bwd_dkv_launch(q, k, v, do, lse, delta, dk, dv, causal)
+    return dq, dk, dv, delta
 
 
 # ----------------------------------------------------- the autograd boundary
@@ -408,7 +463,7 @@ def _backward(ctx, d_out, _d_lse):
         grads = flash_attention_bwd_ref(q, k, v, out, lse, d_out, ctx.causal,
                                         ctx.block_q, ctx.block_k)
     else:
-        grads = _flash_bwd_cuda(q, k, v, out, lse, d_out, ctx.causal)
+        grads = _flash_bwd_cuda(q, k, v, out, lse, d_out, ctx.causal)[:3]
     return (*grads, None, None, None, None)
 
 

@@ -69,7 +69,6 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 
@@ -98,11 +97,6 @@ constexpr int kThreads = 128;  // the f32 kernel's block
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // ---------------------------------------------------- bf16: wgmma, TMA ring

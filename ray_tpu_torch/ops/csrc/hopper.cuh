@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
 // (flash_fwd.cu, flash_bwd.cu): TMA tensor maps and tile loads, mbarriers,
-// wgmma shared-memory descriptors and the wgmma products with their fences.
+// wgmma shared-memory descriptors and the wgmma products with their fences,
+// and the packing of f32 accumulators into bf16 operands.
 //
 // Shared-memory tiles. A "panel" is a [rows][min(D, 64)] bf16 tile, what
 // one TMA box writes: its rows are 32, 64 or 128 bytes, and TMA stores them
@@ -23,10 +24,12 @@
 // fragment (d[4i..4i+3]: (g, 8i+2t), (g, 8i+2t+1), (g+8, ..), (g+8, ..),
 // g = lane / 4, t = lane % 4). A register A operand of m64nNk16 is
 // mma.sync's m16n8k16 A fragment of the warp's 16 rows, so two neighbouring
-// accumulator chunks, packed to bf16, are the A operand of the next product.
+// accumulator chunks, packed to bf16 (pack_bf16), are the A operand of the
+// next product.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -228,6 +231,19 @@ __device__ __forceinline__ float exp2_fast(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The sum of x over the four lanes of a quad (lanes 4i .. 4i + 3), which
+// share the rows of an accumulator.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Two f32 values as one register of two bf16 (lo in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
 }
 
 // Keeps the compiler from moving accesses of an accumulator across the

@@ -11,14 +11,16 @@ takes longer. It prints, beside the card's name and power limit:
   and ptxas's notes on serialised wgmma products);
 - per kernel function, the count of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA
   load), ``HMMA`` (mma.sync) and ``MUFU.EX2`` instructions in its SASS;
-- K1 and K2-K4 against their plain versions (``chip_smoke.py``'s bounds)
+- K1, K2, K4 (dq and delta) and K3 (from K4's delta) against their plain
+  versions (``chip_smoke.py``'s bounds)
   over ``chip_smoke.py``'s cases (serving shapes, edge cases: ragged, odd
   lengths, GQA, every head dim, non-causal, in bf16 and f32) and the
   training shape;
 - device ms (CUDA-graph replay) of K1 at the serving entry shape (B=2,
   T=256) beside SDPA, and of K2, K3, K4 at GPT-2 small's training shape
-  (B=32, T=1024) and at B=4, T=2048 beside SDPA's forward, with the
-  products' TFLOP/s.
+  (B=32, T=1024) and at B=4, T=2048 beside SDPA's forward and backward
+  (CUDA graphs), with the products' TFLOP/s; at the training shape also the
+  plain versions of K4 and K3, each on its own.
 
 With ``--out-dir`` the full compiler logs and SASS are written there.
 Exits non-zero if a build fails or a case is outside its bound. Imports
@@ -109,12 +111,14 @@ def main() -> int:
         with torch.no_grad():
             o1 = attn.flash_attention(q, k, v, causal)
             out, lse = attn._flash_fwd_cuda(q, k, v, causal, with_lse=True)
-            dq, dk, dv = attn._flash_bwd_cuda(q, k, v, out, lse, do, causal)
+            dq, dk, dv, delta = attn._flash_bwd_cuda(q, k, v, out, lse, do, causal)
             torch.cuda.synchronize()
             ro, rl = attn.flash_attention_ref(q, k, v, causal, with_lse=True)
-            rq, rk, rv = attn.flash_attention_bwd_ref(q, k, v, out, lse, do, causal)
+            rq, rd = attn.flash_bwd_dq_ref(q, k, v, out, lse, do, causal)
+            rk, rv = attn.flash_bwd_dkv_ref(q, k, v, delta, lse, do, causal)
         errs = {"K1": cs.close(o1, ro, cs.TOL[dn]), "out": cs.close(out, ro, cs.TOL[dn]),
                 "lse": cs.close(lse, rl, cs.LSE_TOL),
+                "delta": cs.close(delta, rd, cs.LSE_TOL),
                 "dq": cs.close(dq, rq, cs.GRAD_TOL[dn]),
                 "dk": cs.close(dk, rk, cs.GRAD_TOL[dn]),
                 "dv": cs.close(dv, rv, cs.GRAD_TOL[dn])}
@@ -140,19 +144,39 @@ def main() -> int:
             k2 = cs.graph_ms(lambda: attn._flash_fwd_cuda(q, k, v, True, with_lse=True),
                              reps=20)
             out, lse = attn._flash_fwd_cuda(q, k, v, True, with_lse=True)
-            prep = attn._flash_bwd_prepare(q, k, v, out, lse, do)
+            q, k, v, out, do, lse = attn._flash_bwd_prepare(q, k, v, out, lse, do)
             dq, dk, dv = (torch.empty_like(out) for _ in range(3))
-            k3 = cs.graph_ms(lambda: attn._flash_bwd_launch(
-                "flash_bwd_dkv", *prep, (dk, dv), True), reps=20)
-            k4 = cs.graph_ms(lambda: attn._flash_bwd_launch(
-                "flash_bwd_dq", *prep, (dq,), True), reps=20)
+            delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+            k4 = cs.graph_ms(lambda: attn._flash_bwd_dq_launch(
+                q, k, v, out, do, lse, dq, delta, True), reps=20)
+            k3 = cs.graph_ms(lambda: attn._flash_bwd_dkv_launch(
+                q, k, v, do, lse, delta, dk, dv, True), reps=20)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             sdpa = cs.graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), reps=20)
+            plain = ""
+            if T == 1024:
+                p4 = cs.cuda_ms(lambda: attn.flash_bwd_dq_ref(q, k, v, out, lse, do, True),
+                                3, 1)
+                p3 = cs.cuda_ms(lambda: attn.flash_bwd_dkv_ref(q, k, v, delta, lse, do,
+                                                               True), 3, 1)
+                plain = f"; plain K4 {p4:.4f} ms, plain K3 {p3:.4f} ms"
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):   # the backward runs on this stream
+            o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=True)
+        sdpa_bwd = cs.graph_ms(lambda: torch.autograd.grad(
+            o_sdpa, (qg, kg, vg), do.transpose(1, 2), retain_graph=True),
+            reps=20, stream=side)
+        del o_sdpa, qg, kg, vg
         flop = 2.0 * D * T * (T + 1) / 2 * B * H   # one causal [T, T, D] product
         print(f"[{card}] B={B} T={T}: K2 {k2:.4f} ms ({2 * flop / k2 / 1e9:.0f} "
               f"TFLOP/s), K3 {k3:.4f} ms ({4 * flop / k3 / 1e9:.0f}), K4 {k4:.4f} "
-              f"ms ({3 * flop / k4 / 1e9:.0f}); sdpa forward {sdpa:.4f} ms", flush=True)
+              f"ms ({3 * flop / k4 / 1e9:.0f}); sdpa forward {sdpa:.4f} ms, "
+              f"backward {sdpa_bwd:.4f} ms; K3 + K4 {k3 + k4:.4f} ms "
+              f"({(k3 + k4) / sdpa_bwd:.2f}x sdpa's backward){plain}", flush=True)
     return 1 if bad else 0
 
 

@@ -215,3 +215,43 @@ def test_flash_bwd_ref_bf16_follows_precision_contract():
                                     do.to(torch.bfloat16).float())
     for gr, rg in zip(grads, ref_grads):
         torch.testing.assert_close(gr.float(), rg, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize(
+    "B,T,H,Hkv,D,causal,block",
+    [
+        (2, 64, 4, 4, 32, True, 32),
+        (1, 100, 4, 2, 32, True, 64),    # GQA, ragged
+        (1, 100, 4, 2, 32, False, 64),
+        (1, 96, 2, 2, 16, True, 64),     # ragged T
+        (2, 77, 4, 2, 16, True, 128),    # odd T inside one 128-row tile, GQA
+    ],
+)
+def test_flash_bwd_refs_match_jax_bwd_kernels(B, T, H, Hkv, D, causal, block):
+    """Each backward kernel's plain version against the JAX backward
+    (``_flash_bwd_impl`` in interpret mode: its Pallas dK/dV and dQ kernels)
+    on the JAX forward's out and lse: ``flash_bwd_dq_ref`` (K4's: dq, and
+    delta against ``sum(dO * out, -1)``) and ``flash_bwd_dkv_ref`` (K3's: dk
+    and dv from that delta). Bound 2e-4, the reference's gradient bound."""
+    q, k, v = _qkv(B, T, H, D, Hkv, seed=11)
+    do = np.random.RandomState(12).randn(B, T, H, D).astype(np.float32)
+    qj, kj, vj, doj = (jnp.asarray(a) for a in (q, k, v, do))
+    out_j, lse_j = jattn._flash_fwd_impl(qj, kj, vj, causal=causal,
+                                         block_q=block, block_k=block,
+                                         interpret=True, with_lse=True)
+    dq_j, dk_j, dv_j = jattn._flash_bwd_impl(
+        qj, kj, vj, out_j, lse_j, doj, causal=causal, block_q=block,
+        block_k=block, interpret=True)
+    delta_j = np.asarray(jnp.sum(doj * out_j, -1)).transpose(0, 2, 1)
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    out_t = torch.from_numpy(np.array(out_j))
+    lse_t = torch.from_numpy(np.array(lse_j)[:, 0, :T].reshape(B, H, T))
+    dq_t, delta_t = tattn.flash_bwd_dq_ref(qt, kt, vt, out_t, lse_t, dot,
+                                           causal, block, block)
+    assert delta_t.shape == (B, H, T) and delta_t.dtype == torch.float32
+    np.testing.assert_allclose(dq_t.numpy(), np.asarray(dq_j), **GRAD_TOL)
+    np.testing.assert_allclose(delta_t.numpy(), delta_j, **GRAD_TOL)
+    dk_t, dv_t = tattn.flash_bwd_dkv_ref(qt, kt, vt, delta_t, lse_t, dot,
+                                         causal, block, block)
+    np.testing.assert_allclose(dk_t.numpy(), np.asarray(dk_j), **GRAD_TOL)
+    np.testing.assert_allclose(dv_t.numpy(), np.asarray(dv_j), **GRAD_TOL)
