@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero:
    the card, over the serving shapes and the edge cases; then K2 (the
    forward with lse), K4 (dQ and delta = rowsum(dO * O)) and K3 (dK, dV
    from K4's delta) against theirs, over the same cases and the training
-   shape.
+   shape. The cases include llama-1b's serving and training shapes
+   (H=32 over Hkv=8: four query heads per kv head) and llama-8b's head
+   shape (D=128, GQA 4).
 3. The serving path, part one: the GPT-2-small full-sequence forward
    (B=2, T=256) through K1, in bf16 and f32, against the dense version;
    one forward launches K1 once per layer.
@@ -31,18 +33,36 @@ Phases, in order; any failure exits non-zero:
 6. Training parity on the card: f32, GPT-2-small width at depth 2, B=2,
    T=256, 3 steps through the kernels against the plain (flash_interpret)
    path: loss and grad_norm per step within 2e-4 relative.
-7. Numbers: K1 at the serving entry shape and K2-K4 at the training shape
-   beside their bounds, plain versions and ``scaled_dot_product_attention``
-   (forward; backward through autograd, both from CUDA graphs), K3 + K4
-   against SDPA's whole backward, decode tokens/s, ms per tick at 8
-   active slots, prefill ms per bucket; train-step ms, tokens/s, MFU
-   against the data sheet and against a timed bf16 matmul chain, and peak
-   memory.
+7. Kernel numbers: K1 at the serving entry shape and K2-K4 at the training
+   shape, then K1 at llama-1b's serving shape and K2-K4 at its training
+   shape, beside their bounds, plain versions and
+   ``scaled_dot_product_attention`` (forward; backward through autograd,
+   both from CUDA graphs; GQA through ``enable_gqa=True``), K3 + K4 against
+   SDPA's whole backward; the bf16 matmul chain's rate.
+8. Llama serving at llama-1b width (L=16, H=32, KV=8, E=2048, M=5504,
+   V=32000; ``LLMConfig(model_family="llama")``): the full forward (B=2,
+   T=256) through K1 in bf16 and f32 against the dense version, 16 K1
+   launches a forward; an f32 engine whose greedy tokens equal argmax over
+   the full forward through K1; a bf16 engine answering phase 4's 16
+   requests; decode tokens/s, ms per tick, prefill ms per bucket.
+9. Llama training: the ``llama-1b`` preset (rope_theta 500000) at B=8,
+   T=2048, bf16 over f32 parameters, remat "dots", 12 steps: finite
+   losses, the first within 0.5 of ln(32000), a falling loss, per step 16
+   launches each of K2, K3 and K4 and none of K1; ms per step, tokens/s,
+   MFU, peak memory.
+10. Llama training parity: f32, llama-1b width at depth 2, B=2, T=256, 3
+    steps through the kernels against the plain path, within 2e-4.
+11. MoE: a llama of 8 SwiGLU experts, top-2, at llama-1b width and depth
+    2, in f32: the engine's greedy tokens (dropless routing) equal argmax
+    over the full forward through K1; one capacity-routed train step
+    through K2-K4 gives a finite loss and a positive aux loss.
 
-K1's launch count is set to 0 before phase 3 and read after phase 4; K2-K4's
-before phase 5's 12 steps and read after them. The last lines are the card,
-the ``kernels`` JSON line and the result line. It imports nothing of JAX
-and nothing of ``ray_tpu``.
+Launch counts are set to 0 just before each main path and read just
+after it: K1's before phase 3 and after phase 4 (GPT-2 serving) and before
+and after phase 8 (llama serving); K2-K4's before and after the 12 steps of
+phase 5 (GPT-2) and of phase 9 (llama). The last lines are the card, the
+``kernels`` JSON line and the result line. It imports nothing of JAX and
+nothing of ``ray_tpu``.
 """
 from __future__ import annotations
 
@@ -67,6 +87,14 @@ PREFILL_BUCKETS = (64, 128, 256)
 # The JAX package's training bench shape (bench.py:103): B=32, T=1024.
 TRAIN_BATCH = (32, 1024)
 TRAIN_STEPS = 12
+
+# llama-1b (ray_tpu/models/llama.py LLAMA_1B) at published widths: served
+# as LLMConfig(model_family="llama") builds it (rope_theta and mlp_dim at
+# LlamaConfig's defaults, as in JAX), trained as the preset itself.
+LLAMA_ENGINE = dict(model_family="llama", vocab_size=32000, max_seq_len=4096,
+                    num_layers=16, num_heads=32, num_kv_heads=8,
+                    embed_dim=2048)
+LLAMA_TRAIN_BATCH = (8, 2048)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -124,6 +152,12 @@ CASES = [
     # A longer causal walk: the tile rings spend most of their time in
     # steady state.
     ("long2048", 4, 2048, 12, 12, 64, True, "bfloat16", True),
+    # llama-1b's serving and training shapes: four query heads per kv head
+    # (K3 sums dK/dV over all four), and llama-8b's head shape at D=128.
+    ("llama1b-serve", 2, 256, 32, 8, 64, True, "bfloat16", False),
+    ("llama1b-serve", 2, 256, 32, 8, 64, True, "float32", False),
+    ("llama1b-train", 8, 2048, 32, 8, 64, True, "bfloat16", False),
+    ("llama8b-d128", 1, 1024, 32, 8, 128, True, "bfloat16", False),
 ]
 
 
@@ -268,6 +302,24 @@ def matmul_roof_tflops() -> float:
     return 2 * M * E * H * 2 * inner / (ms * 1e-3) / 1e12
 
 
+def lively(model, names):
+    """Random weights from the seed with the named block projections (and
+    GPT-2's wpe) x3: at the plain init greedy decoding only repeats the
+    last prompt token, which a broken cache would reproduce as well."""
+    import torch
+
+    with torch.no_grad():
+        for n in names:
+            model["blocks"][n].mul_(3.0)
+        if hasattr(model, "wpe"):
+            model["wpe"].mul_(3.0)
+    return model
+
+
+GPT2_LIVELY = ("qkv_w", "proj_w", "fc_w", "out_w")
+LLAMA_LIVELY = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
 def main() -> int:
     import torch
 
@@ -285,9 +337,10 @@ def main() -> int:
 
     from ray_tpu_torch._private.device import card_info
     from ray_tpu_torch.llm import DecodeEngine, LLMConfig, SamplingParams
-    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models import get_preset, gpt2, llama
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.parallel.moe import MoEConfig
     from ray_tpu_torch.train import (
         OptimizerConfig,
         create_train_state,
@@ -409,171 +462,276 @@ def main() -> int:
         check(lse.shape == (B, H, T) and delta.shape == (B, H, T) and all(
             bool(torch.isfinite(x).all()) for x in (out, lse, delta, dq, dk, dv)),
             f"K2-K4 {name}: bad output")
-        if name == "train" and dtype == bf16:
-            train_errs = {n: e for n, (e, _) in errs_case.items()}
+        if name in ("train", "llama1b-train") and dtype == bf16:
+            train_errs[name] = {n: e for n, (e, _) in errs_case.items()}
     del q, k, v, do, out, lse, delta, dq, dk, dv, ref_out, ref_lse, rq, rdelta, rk, rv
     phase_done(2)
+
+    # ------------------------------------------ shared by both model families
+    def full_forward_checks(label, mod, params, cfg_bf16):
+        """The full forward (FORWARD_BATCH) through K1 in bf16 and f32
+        against the dense version; returns K1's launches per forward."""
+        tokens = torch.randint(0, cfg_bf16.vocab_size, FORWARD_BATCH,
+                               device=dev, generator=gen)
+        with torch.no_grad():
+            before = attn.launches["flash_fwd"]
+            logits_flash, _ = mod.forward(params, tokens, cfg_bf16)
+            torch.cuda.synchronize()
+            per_forward = attn.launches["flash_fwd"] - before
+            logits_xla, _ = mod.forward(
+                params, tokens,
+                dataclasses.replace(cfg_bf16, attention_impl="xla"))
+            cfg_f32 = dataclasses.replace(cfg_bf16, dtype=torch.float32)
+            logits32_flash, _ = mod.forward(params, tokens, cfg_f32)
+            logits32_xla, _ = mod.forward(
+                params, tokens,
+                dataclasses.replace(cfg_f32, attention_impl="xla"))
+            torch.cuda.synchronize()
+        L = cfg_bf16.num_layers
+        check(per_forward == L,
+              f"{label}: one forward launched K1 {per_forward} times, want {L}")
+        check(tuple(logits_flash.shape) == (*FORWARD_BATCH, cfg_bf16.vocab_size)
+              and bool(torch.isfinite(logits_flash).all()), f"{label}: bf16 logits")
+        # f32: both paths compute in f32; 1e-4 = five times the reference's
+        # per-op 2e-5, for the stacked layers.
+        d32 = float((logits32_flash - logits32_xla).abs().max())
+        check(torch.allclose(logits32_flash, logits32_xla, atol=1e-4, rtol=1e-4),
+              f"{label} f32 forward: flash vs dense max diff {d32:.3e}")
+        # bf16: the two paths round at different places (the dense path
+        # rounds the scores to bf16 before softmax, the kernel keeps them in
+        # f32); the kernel's path must be no further from the f32 forward
+        # than the dense path is.
+        e_flash = float((logits_flash - logits32_xla).abs().max())
+        e_xla = float((logits_xla - logits32_xla).abs().max())
+        d16 = float((logits_flash - logits_xla).abs().max())
+        log(f"forward {label} B,T={FORWARD_BATCH}: K1 launches/forward "
+            f"{per_forward}; f32 max|flash-dense| {d32:.3e}; bf16 "
+            f"max|flash-dense| {d16:.3e}; bf16 max|.-f32| flash {e_flash:.3e} "
+            f"dense {e_xla:.3e}")
+        check(e_flash <= 1.5 * e_xla + 1e-3,
+              f"{label}: bf16 forward through K1 is further from f32 "
+              f"({e_flash:.3e}) than the dense bf16 path ({e_xla:.3e})")
+        return per_forward
+
+    def greedy_matches_forward(label, mod, eng, prompts, n_new):
+        """The engine's greedy tokens equal argmax over the full forward
+        through K1, re-run per step."""
+        try:
+            futs = [eng.submit(p, SamplingParams(max_new_tokens=n_new))
+                    for p in prompts]
+            got = [list(f.result(600)) for f in futs]
+        finally:
+            eng.shutdown()
+        cfg_ref = dataclasses.replace(eng.model_config, attention_impl="flash")
+        with torch.no_grad():
+            for prompt, out in zip(prompts, got):
+                seq, expect = list(prompt), []
+                for _ in range(n_new):
+                    logits, _ = mod.forward(
+                        eng.params, torch.tensor([seq], device=dev), cfg_ref)
+                    nxt = int(logits[0, -1].argmax())
+                    expect.append(nxt)
+                    if nxt == eng.tokenizer.eos_id:
+                        break
+                    seq.append(nxt)
+                expect = [t for t in expect if t != eng.tokenizer.eos_id]
+                log(f"{label} greedy {out}")
+                check(len(out) >= 1 and out == expect[:len(out)],
+                      f"{label} tokens {out} != K1 full-forward argmax {expect}")
+
+    text = ("Ray is a framework for scaling Python and AI workloads: tasks, "
+            "actors and objects on a cluster, with libraries for training, "
+            "tuning, serving and data. This port runs its models on the "
+            "card. ") * 3
+
+    def mixed_requests(eng, label):
+        """16 mixed requests (8-200 bytes, 32 new tokens; a third greedy, a
+        third top-p, a third seeded top-k) through ``eng``; then prefill ms
+        per bucket, the eager decode forward at 8 slots and host sampling.
+        Returns the numbers."""
+        lengths = np.random.RandomState(0).randint(8, 201, size=16)
+        requests = []
+        for i, n in enumerate(lengths):
+            if i % 3 == 0:
+                sp = SamplingParams(max_new_tokens=32)
+            elif i % 3 == 1:
+                sp = SamplingParams(max_new_tokens=32, temperature=0.8, top_p=0.9)
+            else:
+                sp = SamplingParams(max_new_tokens=32, temperature=1.0, top_k=50,
+                                    seed=i)
+            requests.append((eng.tokenizer.encode(text[i:i + int(n)]), sp))
+        ticks = []
+        plain_tick = eng._tick_plain_locked
+
+        def timed_tick():
+            n = sum(s.active for s in eng._slots)
+            t = time.perf_counter()
+            busy = plain_tick()
+            ticks.append((n, time.perf_counter() - t))
+            return busy
+
+        eng._tick_plain_locked = timed_tick
+        try:
+            t = time.perf_counter()
+            futs = [eng.submit(p, sp) for p, sp in requests]
+            outs = [list(f.result(600)) for f in futs]
+            serve_s = time.perf_counter() - t
+        finally:
+            eng.shutdown()
+        vocab = eng.model_config.vocab_size
+        check(all(len(o) >= 1 for o in outs), f"{label}: a request returned nothing")
+        check(all(0 <= x < vocab for o in outs for x in o), f"{label}: bad ids")
+        produced = eng.stats["tokens_generated"] + len(outs)  # + first tokens
+        full = [dt for n, dt in ticks if n == 8]
+        check(len(full) > 0, f"{label}: no tick ran with 8 active slots")
+        log(f"{label}: {len(outs)} requests answered, output lengths "
+            f"{[len(o) for o in outs]}")
+
+        # Prefill ms per bucket (batch 1, the engine's own prefill function).
+        prefill_ms = {}
+        for bucket in eng.config.prefill_buckets:
+            toks = torch.randint(2, 258, (1, bucket), device=dev, generator=gen)
+            start = torch.zeros(1, dtype=torch.long, device=dev)
+
+            def run_prefill():
+                eng._prefill(eng.params, toks, eng._empty_slot_cache(), start)
+
+            prefill_ms[bucket] = cuda_ms(run_prefill, iters=10)
+
+        # Where a tick goes: the device forward of one decode step at 8
+        # slots (eager, as the engine runs it) and the host sampling of one
+        # slot.
+        toks8 = torch.randint(2, 258, (8, 1), device=dev, generator=gen)
+        lens8 = torch.full((8,), 300, dtype=torch.long, device=dev)
+        decode_ms = cuda_ms(
+            lambda: eng._decode(eng.params, toks8, eng._cache, lens8), iters=20)
+        row = np.random.RandomState(1).randn(vocab).astype(np.float32)
+        sample_ms = {}
+        for kind, sp in (("greedy", requests[0][1]), ("top_p", requests[1][1]),
+                         ("top_k", requests[2][1])):
+            t = time.perf_counter()
+            for _ in range(20):
+                eng._sample(row, sp, requests[0][0], (), np.random.RandomState(0))
+            sample_ms[kind] = (time.perf_counter() - t) / 20 * 1e3
+        return dict(produced=produced, serve_s=serve_s,
+                    tick8_ms=float(np.median(full)) * 1e3, n_full=len(full),
+                    prefill_ms=prefill_ms, decode_ms=decode_ms,
+                    sample_ms=sample_ms)
+
+    def log_serving(label, s):
+        log(f"[{card}] {label} bf16 engine: {s['produced']} tokens in "
+            f"{s['serve_s']:.3f} s = {s['produced'] / s['serve_s']:.1f} tok/s "
+            f"over 16 requests; median tick at 8 active slots "
+            f"{s['tick8_ms']:.3f} ms ({8e3 / s['tick8_ms']:.1f} tok/s), "
+            f"{s['n_full']} such ticks")
+        log(f"[{card}] {label} prefill ms per bucket: "
+            + ", ".join(f"{b}: {ms:.3f}" for b, ms in s["prefill_ms"].items()))
+        log(f"[{card}] {label} decode forward at 8 slots {s['decode_ms']:.3f} "
+            "ms; host sampling ms per slot: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in s["sample_ms"].items()))
+
+    opt_cfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=2, total_steps=20)
+
+    def train_steps(label, cfg, B, T):
+        """TRAIN_STEPS steps of make_train_step on one seeded batch, K2-K4's
+        counts set to 0 just before and read just after; the checks of
+        phase 5. Returns (state, batch, numbers)."""
+        L, V = cfg.num_layers, cfg.vocab_size
+        opt = opt_cfg.build()
+        state = create_train_state(cfg, opt, torch.Generator().manual_seed(0),
+                                   dev)
+        train_step = make_train_step(cfg, opt)
+        batch = {"tokens": torch.randint(0, V, (B, T + 1), device=dev,
+                                         generator=gen)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for name in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"):
+            attn.launches[name] = 0
+        losses, norms, step_s, per_step = [], [], [], []
+        for i in range(TRAIN_STEPS):
+            before = dict(attn.launches)
+            t = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            per_step.append({n: attn.launches[n] - before[n] for n in attn.launches})
+        launches = dict(attn.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"train {label} B={B} T={T} bf16/f32 remat {cfg.remat_policy}: "
+            "losses " + " ".join(f"{x:.4f}" for x in losses))
+        log(f"train {label} grad norms " + " ".join(f"{x:.4f}" for x in norms))
+        log(f"train {label} launches per step {per_step[0]} ({TRAIN_STEPS} "
+            f"steps: {launches})")
+        check(all(math.isfinite(x) for x in losses + norms),
+              f"{label}: non-finite loss or norm")
+        check(abs(losses[0] - math.log(V)) < 0.5,
+              f"{label}: step-0 loss {losses[0]:.4f} not within 0.5 of ln V = "
+              f"{math.log(V):.4f}")
+        check(losses[-1] < losses[0],
+              f"{label}: loss did not fall: {losses[0]} -> {losses[-1]}")
+        want = {"flash_fwd": 0, "flash_fwd_lse": L, "flash_bwd_dkv": L,
+                "flash_bwd_dq": L}
+        for i, counts in enumerate(per_step):
+            check(counts == want, f"{label} train step {i} launches {counts}, "
+                  f"want {want}")
+        return state, batch, opt, dict(launches=launches, peak_gb=peak_gb,
+                                       step_s=step_s, want=want)
+
+    def train_parity(label, par_cfg, V):
+        """f32, B=2, T=256, 3 steps through the kernels against the plain
+        (flash_interpret) path: loss and grad_norm within 2e-4 relative."""
+        par = {}
+        for impl in ("flash", "flash_interpret"):
+            cfg = dataclasses.replace(par_cfg, attention_impl=impl)
+            opt = opt_cfg.build()
+            st = create_train_state(cfg, opt, torch.Generator().manual_seed(3), dev)
+            fn = make_train_step(cfg, opt)
+            toks = torch.randint(0, V, (2, 257), device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(4))
+            rows = []
+            for _ in range(3):
+                st, m = fn(st, {"tokens": toks})
+                rows.append((float(m["loss"]), float(m["grad_norm"])))
+            par[impl] = rows
+            del st, fn, opt
+        par_rel = max(abs(a - b) / abs(b)
+                      for ka, kb in zip(par["flash"], par["flash_interpret"])
+                      for a, b in zip(ka, kb))
+        log(f"train parity {label} f32 depth 2 B=2 T=256, (loss, grad_norm) per "
+            f"step: kernels {par['flash']}, plain {par['flash_interpret']}; max "
+            f"rel diff {par_rel:.3e} (bound 2e-4)")
+        check(par_rel <= 2e-4, f"{label} train parity: max rel diff "
+              f"{par_rel:.3e} > 2e-4")
 
     # ------------------------------- 3. main path: GPT-2-small full forward
     attn.launches["flash_fwd"] = 0
     small = gpt2.GPT2Config(**MODEL)
     cfg_bf16 = dataclasses.replace(small, attention_impl="flash")
     model = gpt2.init_params(cfg_bf16, torch.Generator().manual_seed(0), dev)
-    tokens = torch.randint(0, small.vocab_size, FORWARD_BATCH, device=dev,
-                           generator=gen)
-    with torch.no_grad():
-        before = attn.launches["flash_fwd"]
-        logits_flash, _ = gpt2.forward(model, tokens, cfg_bf16)
-        torch.cuda.synchronize()
-        per_forward = attn.launches["flash_fwd"] - before
-        logits_xla, _ = gpt2.forward(
-            model, tokens, dataclasses.replace(cfg_bf16, attention_impl="xla"))
-        cfg_f32 = dataclasses.replace(cfg_bf16, dtype=torch.float32)
-        logits32_flash, _ = gpt2.forward(model, tokens, cfg_f32)
-        logits32_xla, _ = gpt2.forward(
-            model, tokens, dataclasses.replace(cfg_f32, attention_impl="xla"))
-        torch.cuda.synchronize()
-    check(per_forward == small.num_layers,
-          f"one forward launched K1 {per_forward} times, want {small.num_layers}")
-    check(tuple(logits_flash.shape) == (*FORWARD_BATCH, small.vocab_size)
-          and bool(torch.isfinite(logits_flash).all()), "bf16 logits")
-    # f32: both paths compute in f32; 1e-4 = five times the reference's
-    # per-op 2e-5, for 12 stacked layers.
-    d32 = float((logits32_flash - logits32_xla).abs().max())
-    check(torch.allclose(logits32_flash, logits32_xla, atol=1e-4, rtol=1e-4),
-          f"f32 forward: flash vs dense max diff {d32:.3e}")
-    # bf16: the two paths round at different places (the dense path rounds
-    # the scores to bf16 before softmax, the kernel keeps them in f32); the
-    # kernel's path must be no further from the f32 forward than the dense
-    # path is.
-    e_flash = float((logits_flash - logits32_xla).abs().max())
-    e_xla = float((logits_xla - logits32_xla).abs().max())
-    d16 = float((logits_flash - logits_xla).abs().max())
-    log(f"forward GPT-2 small B,T={FORWARD_BATCH}: K1 launches/forward {per_forward}; "
-        f"f32 max|flash-dense| {d32:.3e}; bf16 max|flash-dense| {d16:.3e}; "
-        f"bf16 max|.-f32| flash {e_flash:.3e} dense {e_xla:.3e}")
-    check(e_flash <= 1.5 * e_xla + 1e-3,
-          f"bf16 forward through K1 is further from f32 ({e_flash:.3e}) than "
-          f"the dense bf16 path ({e_xla:.3e})")
-    del logits_flash, logits_xla, logits32_flash, logits32_xla, model
+    full_forward_checks("GPT-2 small", gpt2, model, cfg_bf16)
+    del model
     phase_done(3)
 
     # ------------------------------------------ 4. main path: serving
     engine_kw = dict(MODEL, max_batch_slots=8, prefill_buckets=PREFILL_BUCKETS)
-
-    def lively(model):
-        # Random weights from the seed, block projections and wpe x3: at
-        # the plain init greedy decoding only repeats the last prompt token.
-        with torch.no_grad():
-            for n in ("qkv_w", "proj_w", "fc_w", "out_w"):
-                model["blocks"][n].mul_(3.0)
-            model["wpe"].mul_(3.0)
-        return model
-
     # f32 engine: greedy tokens == argmax of the full forward through K1.
     cfg = LLMConfig(dtype="float32", **engine_kw)
     eng = DecodeEngine(cfg, params=lively(gpt2.init_params(
-        cfg.model_config(), torch.Generator().manual_seed(1), dev)), device=dev)
+        cfg.model_config(), torch.Generator().manual_seed(1), dev),
+        GPT2_LIVELY), device=dev)
     prompts = [eng.tokenizer.encode("The port serves GPT-2 on the card."),
                eng.tokenizer.encode("Flash attention, hand-written for Hopper")]
-    n_new = 16
-    try:
-        futs = [eng.submit(p, SamplingParams(max_new_tokens=n_new))
-                for p in prompts]
-        got = [list(f.result(600)) for f in futs]
-    finally:
-        eng.shutdown()
-    cfg_ref = dataclasses.replace(eng.model_config, attention_impl="flash")
-    with torch.no_grad():
-        for prompt, out in zip(prompts, got):
-            seq, expect = list(prompt), []
-            for _ in range(n_new):
-                logits, _ = gpt2.forward(
-                    eng.params, torch.tensor([seq], device=dev), cfg_ref)
-                nxt = int(logits[0, -1].argmax())
-                expect.append(nxt)
-                if nxt == eng.tokenizer.eos_id:
-                    break
-                seq.append(nxt)
-            expect = [t for t in expect if t != eng.tokenizer.eos_id]
-            log(f"f32 engine greedy {out}")
-            check(len(out) >= 1 and out == expect[:len(out)],
-                  f"f32 engine tokens {out} != K1 full-forward argmax {expect}")
+    greedy_matches_forward("f32 engine", gpt2, eng, prompts, 16)
     del eng
-
     # bf16 engine: 16 mixed requests, 32 new tokens each.
     cfg = LLMConfig(dtype="bfloat16", **engine_kw)
     eng = DecodeEngine(cfg, params=lively(gpt2.init_params(
-        cfg.model_config(), torch.Generator().manual_seed(2), dev)), device=dev)
-    text = ("Ray is a framework for scaling Python and AI workloads: tasks, "
-            "actors and objects on a cluster, with libraries for training, "
-            "tuning, serving and data. This port runs its models on the "
-            "card. ") * 3
-    lengths = np.random.RandomState(0).randint(8, 201, size=16)
-    requests = []
-    for i, n in enumerate(lengths):
-        if i % 3 == 0:
-            sp = SamplingParams(max_new_tokens=32)
-        elif i % 3 == 1:
-            sp = SamplingParams(max_new_tokens=32, temperature=0.8, top_p=0.9)
-        else:
-            sp = SamplingParams(max_new_tokens=32, temperature=1.0, top_k=50,
-                                seed=i)
-        requests.append((eng.tokenizer.encode(text[i:i + int(n)]), sp))
-    ticks = []
-    plain_tick = eng._tick_plain_locked
-
-    def timed_tick():
-        n = sum(s.active for s in eng._slots)
-        t = time.perf_counter()
-        busy = plain_tick()
-        ticks.append((n, time.perf_counter() - t))
-        return busy
-
-    eng._tick_plain_locked = timed_tick
-    try:
-        t = time.perf_counter()
-        futs = [eng.submit(p, sp) for p, sp in requests]
-        outs = [list(f.result(600)) for f in futs]
-        serve_s = time.perf_counter() - t
-    finally:
-        eng.shutdown()
-    check(all(len(o) >= 1 for o in outs), "a bf16 request returned nothing")
-    check(all(0 <= x < cfg.vocab_size for o in outs for x in o), "bad ids")
-    produced = eng.stats["tokens_generated"] + len(outs)  # + first tokens
-    full = [dt for n, dt in ticks if n == 8]
-    tick8_ms = float(np.median(full)) * 1e3 if full else float("nan")
-    check(len(full) > 0, "no tick ran with 8 active slots")
-    log(f"bf16 engine: {len(outs)} requests answered, output lengths "
-        f"{[len(o) for o in outs]}")
-
-    # Prefill ms per bucket (batch 1, the engine's own prefill function).
-    prefill_ms = {}
-    for bucket in cfg.prefill_buckets:
-        toks = torch.randint(2, 258, (1, bucket), device=dev, generator=gen)
-        start = torch.zeros(1, dtype=torch.long, device=dev)
-
-        def run_prefill():
-            eng._prefill(eng.params, toks, eng._empty_slot_cache(), start)
-
-        prefill_ms[bucket] = cuda_ms(run_prefill, iters=10)
+        cfg.model_config(), torch.Generator().manual_seed(2), dev),
+        GPT2_LIVELY), device=dev)
+    serving = mixed_requests(eng, "bf16 engine")
     main_launches = attn.launches["flash_fwd"]
-
-    # Where a tick goes: the device forward of one decode step at 8 slots
-    # (eager, as the engine runs it) and the host sampling of one slot.
-    toks8 = torch.randint(2, 258, (8, 1), device=dev, generator=gen)
-    lens8 = torch.full((8,), 300, dtype=torch.long, device=dev)
-    decode_ms = cuda_ms(
-        lambda: eng._decode(eng.params, toks8, eng._cache, lens8), iters=20)
-    row = np.random.RandomState(1).randn(cfg.vocab_size).astype(np.float32)
-    sample_ms = {}
-    for kind, sp in (("greedy", requests[0][1]), ("top_p", requests[1][1]),
-                     ("top_k", requests[2][1])):
-        t = time.perf_counter()
-        for _ in range(20):
-            eng._sample(row, sp, requests[0][0], (), np.random.RandomState(0))
-        sample_ms[kind] = (time.perf_counter() - t) / 20 * 1e3
-
     del eng
     torch.cuda.empty_cache()
     phase_done(4)
@@ -585,40 +743,8 @@ def main() -> int:
     B, T = TRAIN_BATCH
     train_cfg = dataclasses.replace(small, attention_impl="flash", remat=True,
                                     remat_policy="dots")
-    opt_cfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=2, total_steps=20)
-    opt = opt_cfg.build()
-    state = create_train_state(train_cfg, opt, torch.Generator().manual_seed(0),
-                               dev)
-    train_step = make_train_step(train_cfg, opt)
-    batch = {"tokens": torch.randint(0, V, (B, T + 1), device=dev,
-                                     generator=gen)}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for name in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"):
-        attn.launches[name] = 0
-    losses, norms, step_s, per_step = [], [], [], []
-    for i in range(TRAIN_STEPS):
-        before = dict(attn.launches)
-        t = time.perf_counter()
-        state, metrics = train_step(state, batch)
-        losses.append(float(metrics["loss"]))
-        norms.append(float(metrics["grad_norm"]))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-        per_step.append({n: attn.launches[n] - before[n] for n in attn.launches})
-    train_launches = dict(attn.launches)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"train GPT-2 small B={B} T={T} bf16/f32 remat dots: losses "
-        + " ".join(f"{x:.4f}" for x in losses))
-    log(f"train grad norms " + " ".join(f"{x:.4f}" for x in norms))
-    log(f"train launches per step {per_step[0]} (12 steps: {train_launches})")
-    check(all(math.isfinite(x) for x in losses + norms), "non-finite loss or norm")
-    check(abs(losses[0] - math.log(V)) < 0.5,
-          f"step-0 loss {losses[0]:.4f} not within 0.5 of ln V = {math.log(V):.4f}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
-    want = {"flash_fwd": 0, "flash_fwd_lse": L, "flash_bwd_dkv": L, "flash_bwd_dq": L}
-    for i, counts in enumerate(per_step):
-        check(counts == want, f"train step {i} launches {counts}, want {want}")
+    state, batch, opt, gtrain = train_steps("GPT-2 small", train_cfg, B, T)
+    train_launches = gtrain["launches"]
 
     # remat "full" keeps only each block's inputs: the backward re-runs the
     # block, K2 included (JAX's "full" policy does the same).
@@ -633,178 +759,286 @@ def main() -> int:
     full_counts = {n: attn.launches[n] - before[n] for n in attn.launches}
     log(f"train step under remat full: loss {full_loss:.4f}, {full_ms:.1f} ms, "
         f"launches {full_counts}")
-    check(full_counts == {**want, "flash_fwd_lse": 2 * L},
+    check(full_counts == {**gtrain["want"], "flash_fwd_lse": 2 * L},
           f"remat full launches {full_counts}")
-    del state, train_step, full_step, batch, metrics, opt
+    del state, full_step, batch, metrics, opt
     torch.cuda.empty_cache()
     phase_done(5)
 
     # ------------------------- 6. training parity on the card: kernels vs plain
-    par_cfg = dataclasses.replace(small, num_layers=2, dtype=torch.float32)
-    par = {}
-    for impl in ("flash", "flash_interpret"):
-        cfg = dataclasses.replace(par_cfg, attention_impl=impl)
-        opt = opt_cfg.build()
-        st = create_train_state(cfg, opt, torch.Generator().manual_seed(3), dev)
-        fn = make_train_step(cfg, opt)
-        toks = torch.randint(0, V, (2, 257), device=dev,
-                             generator=torch.Generator(device=dev).manual_seed(4))
-        rows = []
-        for _ in range(3):
-            st, m = fn(st, {"tokens": toks})
-            rows.append((float(m["loss"]), float(m["grad_norm"])))
-        par[impl] = rows
-        del st, fn, opt
-    par_rel = max(abs(a - b) / abs(b) for ka, kb in zip(par["flash"], par["flash_interpret"])
-                  for a, b in zip(ka, kb))
-    log(f"train parity f32 depth 2 B=2 T=256, (loss, grad_norm) per step: "
-        f"kernels {par['flash']}, plain {par['flash_interpret']}; max rel diff "
-        f"{par_rel:.3e} (bound 2e-4)")
-    check(par_rel <= 2e-4, f"train parity: max rel diff {par_rel:.3e} > 2e-4")
+    train_parity("GPT-2 small", dataclasses.replace(
+        small, num_layers=2, dtype=torch.float32), V)
     phase_done(6)
 
     # ------------------------------------------------------------ 7. numbers
-    B, T, H, D = 2, 256, 12, 64
-    q, k, v = qkv(B, T, H, H, D, bf16)
-    with torch.no_grad():
-        k1_call_ms = cuda_ms(lambda: attn.flash_attention(q, k, v, True), 200, 10)
-        k1_ms = graph_ms(lambda: attn.flash_attention(q, k, v, True))
-        plain_ms = cuda_ms(lambda: attn.flash_attention_ref(q, k, v, True), 10)
-        dense_ms = cuda_ms(lambda: attn.attention_xla(q, k, v, causal=True), 50)
+    def time_k1(B, T, H, Hkv, D):
+        """K1 (bf16, causal) from a graph and eagerly, the plain and dense
+        versions and SDPA, at one shape."""
+        q, k, v = qkv(B, T, H, Hkv, D, bf16)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
         def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=Hkv != H)
 
-        sdpa_call_ms = cuda_ms(sdpa, 200, 10)
-        sdpa_ms = graph_ms(sdpa)
-        q32, k32, v32 = (x.float() for x in (q, k, v))
-        k1_f32_ms = graph_ms(lambda: attn.flash_attention(q32, k32, v32, True))
-    bound, bound_by = attn_bound_ms("flash_fwd", B, T, T, H, H, D, True, "bfloat16")
-    bound_f32, bound_f32_by = attn_bound_ms("flash_fwd", B, T, T, H, H, D, True,
-                                            "float32")
-    entry_err = max(e["max_abs_err"] for e in errs
-                    if e["case"] == "entry" and e["dtype"] == "bfloat16")
-    log(f"[{card}] K1 bf16 B=2 T=256 H=12 D=64 causal: device {k1_ms:.4f} ms "
-        f"(graph replay), eager call {k1_call_ms:.4f} ms; sdpa device "
-        f"{sdpa_ms:.4f} ms, eager call {sdpa_call_ms:.4f} ms; plain blockwise "
-        f"{plain_ms:.4f} ms; dense {dense_ms:.4f} ms; bound {bound:.5f} ms "
-        f"({bound_by})")
-    log(f"[{card}] K1 f32 same shape: device {k1_f32_ms:.4f} ms; bound "
-        f"{bound_f32:.5f} ms ({bound_f32_by})")
+        with torch.no_grad():
+            r = dict(
+                call_ms=cuda_ms(lambda: attn.flash_attention(q, k, v, True), 200, 10),
+                ms=graph_ms(lambda: attn.flash_attention(q, k, v, True)),
+                plain_ms=cuda_ms(lambda: attn.flash_attention_ref(q, k, v, True), 10),
+                dense_ms=cuda_ms(lambda: attn.attention_xla(q, k, v, causal=True), 50),
+                sdpa_call_ms=cuda_ms(sdpa, 200, 10),
+                sdpa_ms=graph_ms(sdpa))
+            q32, k32, v32 = (x.float() for x in (q, k, v))
+            r["f32_ms"] = graph_ms(lambda: attn.flash_attention(q32, k32, v32, True))
+        r["bound"] = attn_bound_ms("flash_fwd", B, T, T, H, Hkv, D, True, "bfloat16")
+        r["bound_f32"] = attn_bound_ms("flash_fwd", B, T, T, H, Hkv, D, True,
+                                       "float32")
+        shape = f"B={B} T={T} H={H} Hkv={Hkv} D={D} causal"
+        log(f"[{card}] K1 bf16 {shape}: device {r['ms']:.4f} ms (graph replay), "
+            f"eager call {r['call_ms']:.4f} ms; sdpa{' (enable_gqa)' if Hkv != H else ''} "
+            f"device {r['sdpa_ms']:.4f} ms, eager call {r['sdpa_call_ms']:.4f} ms; "
+            f"plain blockwise {r['plain_ms']:.4f} ms; dense {r['dense_ms']:.4f} ms; "
+            f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+        log(f"[{card}] K1 f32 same shape: device {r['f32_ms']:.4f} ms; bound "
+            f"{r['bound_f32'][0]:.5f} ms ({r['bound_f32'][1]})")
+        return r
+
+    def time_k2_k4(B, T, H, Hkv, D, fused):
+        """K2-K4 at one layer's call (bf16, causal), each launch replayed
+        from a CUDA graph; the plain versions; SDPA forward and its
+        backward through autograd, both from CUDA graphs, timed only as a
+        yardstick (GQA through enable_gqa=True, no repeated K/V)."""
+        q, k, v = qkv(B, T, H, Hkv, D, bf16, fused=fused)
+        do = torch.randn(B, T, H, D, device=dev, generator=gen).to(bf16)
+        gqa = Hkv != H
+        with torch.no_grad():
+            k2_ms = graph_ms(lambda: attn._flash_fwd_cuda(q, k, v, True,
+                                                          with_lse=True), reps=20)
+            out, lse = attn._flash_fwd_cuda(q, k, v, True, with_lse=True)
+            q, k, v, out, do, lse = attn._flash_bwd_prepare(q, k, v, out, lse, do)
+            dq = torch.empty_like(out)
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+            k4_ms = graph_ms(lambda: attn._flash_bwd_dq_launch(
+                q, k, v, out, do, lse, dq, delta, True), reps=20)
+            k3_ms = graph_ms(lambda: attn._flash_bwd_dkv_launch(
+                q, k, v, do, lse, delta, dk, dv, True), reps=20)
+            plain_fwd_ms = cuda_ms(
+                lambda: attn.flash_attention_ref(q, k, v, True, with_lse=True), 3, 1)
+            plain_dq_ms = cuda_ms(
+                lambda: attn.flash_bwd_dq_ref(q, k, v, out, lse, do, True), 3, 1)
+            plain_dkv_ms = cuda_ms(
+                lambda: attn.flash_bwd_dkv_ref(q, k, v, delta, lse, do, True), 3, 1)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            sdpa_fwd_ms = graph_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                       enable_gqa=gqa),
+                reps=20)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                                    enable_gqa=gqa)
+        do_t = do.transpose(1, 2)
+        sdpa_bwd_ms = graph_ms(lambda: torch.autograd.grad(
+            o_sdpa, (qg, kg, vg), do_t, retain_graph=True), reps=20, stream=side)
+        del o_sdpa, qg, kg, vg
+        bounds = {n: attn_bound_ms(n, B, T, T, H, Hkv, D, True, "bfloat16")
+                  for n in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}
+        ms = {"flash_fwd_lse": k2_ms, "flash_bwd_dkv": k3_ms, "flash_bwd_dq": k4_ms}
+        shape = f"B={B} T={T} H={H} Hkv={Hkv} D={D} causal"
+        for n in ms:
+            log(f"[{card}] {n} bf16 {shape}: device {ms[n]:.4f} ms (graph "
+                f"replay); bound {bounds[n][0]:.5f} ms ({bounds[n][1]}), "
+                f"{bounds[n][0] / ms[n]:.1%} of it")
+        log(f"[{card}] {shape}: plain blockwise forward with lse "
+            f"{plain_fwd_ms:.4f} ms, dq and delta {plain_dq_ms:.4f} ms, dk and "
+            f"dv {plain_dkv_ms:.4f} ms; sdpa{' (enable_gqa)' if gqa else ''} "
+            f"forward {sdpa_fwd_ms:.4f} ms, backward (dq, dk, dv together) "
+            f"{sdpa_bwd_ms:.4f} ms (both graph replay); K3 + K4 (delta "
+            f"included) {k3_ms + k4_ms:.4f} ms, "
+            f"{(k3_ms + k4_ms) / sdpa_bwd_ms:.2f}x sdpa's backward")
+        plain = {"flash_fwd_lse": plain_fwd_ms, "flash_bwd_dkv": plain_dkv_ms,
+                 "flash_bwd_dq": plain_dq_ms}
+        lib = {"flash_fwd_lse": sdpa_fwd_ms, "flash_bwd_dkv": sdpa_bwd_ms,
+               "flash_bwd_dq": sdpa_bwd_ms}
+        return ms, plain, lib, bounds
+
+    k1 = time_k1(*FORWARD_BATCH, MODEL["num_heads"], MODEL["num_heads"],
+                 MODEL["embed_dim"] // MODEL["num_heads"])
     log(f"[{card}] K1 launches on the main path (phases 3-4): {main_launches}")
-    log(f"[{card}] bf16 engine: {produced} tokens in {serve_s:.3f} s = "
-        f"{produced / serve_s:.1f} tok/s over 16 requests; median tick at 8 "
-        f"active slots {tick8_ms:.3f} ms ({8e3 / tick8_ms:.1f} tok/s), "
-        f"{len(full)} such ticks")
-    log(f"[{card}] prefill ms per bucket: "
-        + ", ".join(f"{b}: {ms:.3f}" for b, ms in prefill_ms.items()))
-    log(f"[{card}] decode forward at 8 slots {decode_ms:.3f} ms; host "
-        f"sampling ms per slot: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in sample_ms.items()))
+    log_serving("GPT-2 small", serving)
     check(main_launches > 0, "K1 was not launched on the main path")
-
-    # K2-K4 at the training shape (one layer's call), each launch replayed
-    # from a CUDA graph; the plain versions; SDPA forward and its backward
-    # through autograd, both from CUDA graphs, timed only as a yardstick.
-    B, T = TRAIN_BATCH
-    H = MODEL["num_heads"]
-    D = MODEL["embed_dim"] // H
-    q, k, v = qkv(B, T, H, H, D, bf16, fused=True)
-    do = torch.randn(B, T, H, D, device=dev, generator=gen).to(bf16)
-    with torch.no_grad():
-        k2_ms = graph_ms(lambda: attn._flash_fwd_cuda(q, k, v, True, with_lse=True),
-                         reps=20)
-        out, lse = attn._flash_fwd_cuda(q, k, v, True, with_lse=True)
-        q, k, v, out, do, lse = attn._flash_bwd_prepare(q, k, v, out, lse, do)
-        dq, dk, dv = (torch.empty_like(out) for _ in range(3))
-        delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
-        k4_ms = graph_ms(lambda: attn._flash_bwd_dq_launch(
-            q, k, v, out, do, lse, dq, delta, True), reps=20)
-        k3_ms = graph_ms(lambda: attn._flash_bwd_dkv_launch(
-            q, k, v, do, lse, delta, dk, dv, True), reps=20)
-        plain_fwd_ms = cuda_ms(
-            lambda: attn.flash_attention_ref(q, k, v, True, with_lse=True), 3, 1)
-        plain_dq_ms = cuda_ms(
-            lambda: attn.flash_bwd_dq_ref(q, k, v, out, lse, do, True), 3, 1)
-        plain_dkv_ms = cuda_ms(
-            lambda: attn.flash_bwd_dkv_ref(q, k, v, delta, lse, do, True), 3, 1)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        sdpa_fwd_ms = graph_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-            reps=20)
-    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        o_sdpa = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    do_t = do.transpose(1, 2)
-    sdpa_bwd_ms = graph_ms(lambda: torch.autograd.grad(
-        o_sdpa, (qg, kg, vg), do_t, retain_graph=True), reps=20, stream=side)
-    del o_sdpa, qg, kg, vg
-    bounds = {n: attn_bound_ms(n, B, T, T, H, H, D, True, "bfloat16")
-              for n in ("flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq")}
-    for n, ms in (("flash_fwd_lse", k2_ms), ("flash_bwd_dkv", k3_ms),
-                  ("flash_bwd_dq", k4_ms)):
-        log(f"[{card}] {n} bf16 B={B} T={T} H={H} D={D} causal: device "
-            f"{ms:.4f} ms (graph replay); bound {bounds[n][0]:.5f} ms "
-            f"({bounds[n][1]}), {bounds[n][0] / ms:.1%} of it")
-    log(f"[{card}] plain blockwise forward with lse {plain_fwd_ms:.4f} ms, "
-        f"dq and delta {plain_dq_ms:.4f} ms, dk and dv {plain_dkv_ms:.4f} ms; "
-        f"sdpa forward {sdpa_fwd_ms:.4f} ms, backward (dq, dk, dv together) "
-        f"{sdpa_bwd_ms:.4f} ms (both graph replay); K3 + K4 (delta included) "
-        f"{k3_ms + k4_ms:.4f} ms, {(k3_ms + k4_ms) / sdpa_bwd_ms:.2f}x sdpa's "
-        f"backward")
-
-    # The train step: median of steps 1.. (step 0 includes warm-up).
-    step_ms = float(np.median(step_s[1:])) * 1e3
-    tokens_per_s = B * T / (step_ms * 1e-3)
+    gpt2_kernels = time_k2_k4(*TRAIN_BATCH, MODEL["num_heads"], MODEL["num_heads"],
+                              MODEL["embed_dim"] // MODEL["num_heads"], True)
+    lh, lkv = LLAMA_ENGINE["num_heads"], LLAMA_ENGINE["num_kv_heads"]
+    ld = LLAMA_ENGINE["embed_dim"] // lh
+    k1_llama = time_k1(*FORWARD_BATCH, lh, lkv, ld)
+    llama_kernels = time_k2_k4(*LLAMA_TRAIN_BATCH, lh, lkv, ld, False)
     roof = matmul_roof_tflops()
-    model_tflops = gpt2.flops_per_token(small) * tokens_per_s / 1e12
-    log(f"[{card}] train step GPT-2 small B={B} T={T} remat dots: median "
-        f"{step_ms:.2f} ms over {len(step_s) - 1} steps (step 0 "
-        f"{step_s[0] * 1e3:.1f} ms), {tokens_per_s:.0f} tokens/s; model "
-        f"{model_tflops:.1f} TFLOP/s (6N per token): MFU "
-        f"{model_tflops / (PEAK_FLOPS['bfloat16'] / 1e12):.1%} of the data "
-        f"sheet's 989, {model_tflops / roof:.1%} of the measured bf16 matmul "
-        f"chain ({roof:.1f} TFLOP/s); peak memory {peak_gb:.2f} GB; remat "
-        f"full step {full_ms:.1f} ms")
 
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/attention.py:73",
-        "launches": main_launches,
-        "max_abs_err": entry_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "library_ms": sdpa_ms,
-    }]
-    for name, line, src, ms, plain, lib_ms, errs in (
-            ("flash_fwd_lse", 174, "flash_fwd.cu", k2_ms, plain_fwd_ms,
-             sdpa_fwd_ms, ("out", "lse")),
-            ("flash_bwd_dkv", 208, "flash_bwd.cu", k3_ms, plain_dkv_ms,
-             sdpa_bwd_ms, ("dk", "dv")),
-            ("flash_bwd_dq", 265, "flash_bwd.cu", k4_ms, plain_dq_ms,
-             sdpa_bwd_ms, ("dq", "delta"))):
-        check(train_launches[name] > 0, f"{name} was not launched on the "
-              "training path")
-        kernels.append({
+    def log_step(label, cfg, mod, B, T, tr, extra=""):
+        """Train-step numbers: median of steps 1.. (step 0 includes
+        warm-up), tokens/s, MFU against the data sheet and the matmul
+        chain, peak memory."""
+        step_ms = float(np.median(tr["step_s"][1:])) * 1e3
+        tokens_per_s = B * T / (step_ms * 1e-3)
+        model_tflops = mod.flops_per_token(cfg) * tokens_per_s / 1e12
+        log(f"[{card}] train step {label} B={B} T={T} remat dots: median "
+            f"{step_ms:.2f} ms over {len(tr['step_s']) - 1} steps (step 0 "
+            f"{tr['step_s'][0] * 1e3:.1f} ms), {tokens_per_s:.0f} tokens/s; model "
+            f"{model_tflops:.1f} TFLOP/s (6N per token): MFU "
+            f"{model_tflops / (PEAK_FLOPS['bfloat16'] / 1e12):.1%} of the data "
+            f"sheet's 989, {model_tflops / roof:.1%} of the measured bf16 matmul "
+            f"chain ({roof:.1f} TFLOP/s); peak memory {tr['peak_gb']:.2f} GB"
+            + extra)
+
+    log_step("GPT-2 small", small, gpt2, *TRAIN_BATCH, gtrain,
+             f"; remat full step {full_ms:.1f} ms")
+    phase_done(7)
+
+    # ------------------------------ 8. main path: llama serving, llama-1b
+    attn.launches["flash_fwd"] = 0
+    llama_kw = dict(LLAMA_ENGINE, max_batch_slots=8,
+                    prefill_buckets=PREFILL_BUCKETS)
+    cfg = LLMConfig(dtype="float32", **llama_kw)
+    lcfg = cfg.model_config()
+    l1b = get_preset("llama-1b")
+    check(isinstance(lcfg, llama.LlamaConfig)
+          and lcfg.num_kv_heads == l1b.num_kv_heads
+          and lcfg.hidden_dim == l1b.hidden_dim, f"LLMConfig gave {lcfg}")
+    lparams = lively(llama.init_params(lcfg, torch.Generator().manual_seed(1),
+                                       dev), LLAMA_LIVELY)
+    llama_per_forward = full_forward_checks(
+        "llama-1b", llama, lparams,
+        dataclasses.replace(lcfg, dtype=torch.bfloat16, attention_impl="flash"))
+    eng = DecodeEngine(cfg, params=lparams, device=dev)
+    prompts_l = [eng.tokenizer.encode("The port serves llama on the card."),
+                 eng.tokenizer.encode("Grouped-query attention, four to one")]
+    greedy_matches_forward("llama-1b f32 engine", llama, eng, prompts_l, 16)
+    del eng
+    eng = DecodeEngine(LLMConfig(dtype="bfloat16", **llama_kw), params=lparams,
+                       device=dev)
+    llama_serving = mixed_requests(eng, "llama-1b bf16 engine")
+    llama_k1_launches = attn.launches["flash_fwd"]
+    del eng, lparams
+    torch.cuda.empty_cache()
+    log(f"[{card}] K1 launches on the llama serving path (phase 8): "
+        f"{llama_k1_launches} ({llama_per_forward} a forward)")
+    log_serving("llama-1b", llama_serving)
+    check(llama_k1_launches > 0, "K1 was not launched on the llama path")
+    phase_done(8)
+
+    # ----------------------------- 9. main path: llama training, llama-1b
+    check(l1b.rope_theta == 500000.0, "llama-1b preset")
+    ltrain_cfg = dataclasses.replace(l1b, attention_impl="flash", remat=True,
+                                     remat_policy="dots")
+    state, batch, opt, ltrain = train_steps("llama-1b", ltrain_cfg,
+                                            *LLAMA_TRAIN_BATCH)
+    del state, batch, opt
+    torch.cuda.empty_cache()
+    log_step("llama-1b", l1b, llama, *LLAMA_TRAIN_BATCH, ltrain)
+    phase_done(9)
+
+    # ------------------------------------------ 10. llama training parity
+    train_parity("llama-1b", dataclasses.replace(
+        l1b, num_layers=2, dtype=torch.float32), l1b.vocab_size)
+    phase_done(10)
+
+    # ------------------------------------------------------------- 11. MoE
+    # Mixtral-style experts at llama-1b width, depth 2, f32: the engine
+    # routes dropless (every token to its top-2), the train step through
+    # capacity queues.
+    moe_kw = dict(llama_kw, num_layers=2, moe_num_experts=8, moe_top_k=2)
+    cfg = LLMConfig(dtype="float32", **moe_kw)
+    mcfg = cfg.model_config()
+    check(mcfg.moe == MoEConfig(num_experts=8, top_k=2, activation="swiglu"),
+          f"LLMConfig gave moe {mcfg.moe}")
+    eng = DecodeEngine(cfg, params=lively(llama.init_params(
+        mcfg, torch.Generator().manual_seed(5), dev), ("wq", "wk", "wv", "wo")),
+        device=dev)
+    check(eng.model_config.moe.dropless, "the engine did not route dropless")
+    greedy_matches_forward("MoE llama f32 engine (dropless)", llama, eng,
+                           prompts_l, 8)
+    del eng
+    moe_train = dataclasses.replace(mcfg, attention_impl="flash")
+    opt = opt_cfg.build()
+    state = create_train_state(moe_train, opt, torch.Generator().manual_seed(6),
+                               dev)
+    toks = torch.randint(0, mcfg.vocab_size, (2, 257), device=dev, generator=gen)
+    before = dict(attn.launches)
+    state, metrics = make_train_step(moe_train, opt)(state, {"tokens": toks})
+    moe_loss = float(metrics["loss"])
+    moe_counts = {n: attn.launches[n] - before[n] for n in attn.launches}
+    with torch.no_grad():
+        _, moe_aux = llama.forward(state["params"], toks[:, :-1], moe_train)
+    moe_aux = float(moe_aux)
+    log(f"MoE llama train step (capacity routing, 8 experts, top-2): loss "
+        f"{moe_loss:.4f}, aux {moe_aux:.6f}, launches {moe_counts}")
+    check(math.isfinite(moe_loss) and moe_aux > 0.0,
+          f"MoE train step: loss {moe_loss}, aux {moe_aux}")
+    check(moe_counts["flash_fwd_lse"] == 2 and moe_counts["flash_bwd_dq"] == 2
+          and moe_counts["flash_bwd_dkv"] == 2, f"MoE launches {moe_counts}")
+    del state, opt
+    torch.cuda.empty_cache()
+    phase_done(11)
+
+    # ------------------------------------------------------ the kernels line
+    def kernel_row(name, line, src, launches, err, ms, plain, bound, lib_ms):
+        return {
             "name": name,
             "route": "cuda",
             "source": f"ray_tpu_torch/ops/csrc/{src}",
             "replaces": f"ray_tpu/ops/attention.py:{line}",
-            "launches": train_launches[name],
-            "max_abs_err": max(train_errs[e] for e in errs),
+            "launches": launches,
+            "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain,
-            "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1],
+            "bound_ms": bound[0],
+            "bound_by": bound[1],
             "library_ms": lib_ms,
-        })
+        }
+
+    def case_err(case):
+        return max(e["max_abs_err"] for e in errs
+                   if e["case"] == case and e["dtype"] == "bfloat16")
+
+    # The top-level numbers are GPT-2 small's shapes (as before); "llama1b"
+    # holds the same keys at llama-1b's shapes; "launches" is the sum of
+    # both main paths, "launches_by_path" each.
+    row = kernel_row("flash_fwd", 73, "flash_fwd.cu",
+                     main_launches + llama_k1_launches, case_err("entry"),
+                     k1["ms"], k1["plain_ms"], k1["bound"], k1["sdpa_ms"])
+    row["launches_by_path"] = {"gpt2": main_launches, "llama": llama_k1_launches}
+    row["llama1b"] = kernel_row(
+        "flash_fwd", 73, "flash_fwd.cu", llama_k1_launches,
+        case_err("llama1b-serve"), k1_llama["ms"], k1_llama["plain_ms"],
+        k1_llama["bound"], k1_llama["sdpa_ms"])
+    kernels = [row]
+    for name, line, src, errs_of in (
+            ("flash_fwd_lse", 174, "flash_fwd.cu", ("out", "lse")),
+            ("flash_bwd_dkv", 208, "flash_bwd.cu", ("dk", "dv")),
+            ("flash_bwd_dq", 265, "flash_bwd.cu", ("dq", "delta"))):
+        for path, tr in (("GPT-2 small", gtrain), ("llama-1b", ltrain)):
+            check(tr["launches"][name] > 0, f"{name} was not launched on the "
+                  f"{path} training path")
+        rows = {}
+        for key, (ms, plain, lib, bounds), case, tr in (
+                ("gpt2", gpt2_kernels, "train", gtrain),
+                ("llama", llama_kernels, "llama1b-train", ltrain)):
+            rows[key] = kernel_row(
+                name, line, src, tr["launches"][name],
+                max(train_errs[case][e] for e in errs_of), ms[name],
+                plain[name], bounds[name], lib[name])
+        row = dict(rows["gpt2"])
+        row["launches"] = rows["gpt2"]["launches"] + rows["llama"]["launches"]
+        row["launches_by_path"] = {"gpt2": rows["gpt2"]["launches"],
+                                   "llama": rows["llama"]["launches"]}
+        row["llama1b"] = rows["llama"]
+        kernels.append(row)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

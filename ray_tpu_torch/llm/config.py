@@ -2,7 +2,8 @@
 
 Counterpart of ``ray_tpu/llm/config.py``: ``LLMConfig`` (same fields and
 defaults), ``ByteTokenizer`` and ``load_tokenizer``. ``model_config()``
-gives the port's ``GPT2Config`` with torch dtypes.
+gives the port's ``GPT2Config`` or ``LlamaConfig`` with torch dtypes,
+mapped as the JAX ``model_config()`` maps them.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ class LLMConfig:
     # to a pickled {"family": ..., "config": config kwargs, "params": tree of
     # numpy arrays} bundle ("family" defaults to gpt2).
     model_source: Optional[str] = None
-    model_family: str = "gpt2"  # "gpt2" (llama is not ported yet)
+    model_family: str = "gpt2"  # "gpt2" | "llama"
     vocab_size: int = 512
     max_seq_len: int = 1024
     num_layers: int = 4
@@ -27,7 +28,10 @@ class LLMConfig:
     num_kv_heads: Optional[int] = None  # llama GQA; None = num_heads (MHA)
     embed_dim: int = 256
     dtype: str = "bfloat16"
-    moe_num_experts: int = 0  # MoE is not ported yet: must stay 0
+    # Mixture-of-Experts (Mixtral-style, SwiGLU experts, for llama; GELU
+    # experts for gpt2): number of routed experts, 0 = dense. Decode routes
+    # each token through its top-k experts (parallel/moe.py).
+    moe_num_experts: int = 0
     moe_top_k: int = 2
 
     # Engine knobs
@@ -49,18 +53,22 @@ class LLMConfig:
     deployment_config: Dict[str, Any] = field(default_factory=dict)
 
     def model_config(self):
+        """The model's config. As in JAX, llama takes ``LlamaConfig``'s
+        defaults for ``rope_theta`` and ``mlp_dim``, and the attention is
+        the dense "xla" version."""
         dtype = torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+        moe = None
         if self.moe_num_experts:
-            raise NotImplementedError("MoE is not ported yet")
-        if self.model_family == "llama":
-            raise NotImplementedError("llama is not ported yet")
-        if self.model_family != "gpt2":
-            raise ValueError(
-                f"unknown model_family {self.model_family!r} (gpt2 | llama)"
-            )
-        from ray_tpu_torch.models.gpt2 import GPT2Config
+            from ray_tpu_torch.parallel.moe import MoEConfig
 
-        return GPT2Config(
+            moe = MoEConfig(
+                num_experts=self.moe_num_experts,
+                top_k=self.moe_top_k,
+                activation=(
+                    "swiglu" if self.model_family == "llama" else "gelu"
+                ),
+            )
+        common = dict(
             vocab_size=self.vocab_size,
             max_seq_len=self.max_seq_len,
             num_layers=self.num_layers,
@@ -68,6 +76,20 @@ class LLMConfig:
             embed_dim=self.embed_dim,
             dtype=dtype,
             attention_impl="xla",
+            moe=moe,
+        )
+        if self.model_family == "llama":
+            from ray_tpu_torch.models.llama import LlamaConfig
+
+            return LlamaConfig(
+                num_kv_heads=self.num_kv_heads or self.num_heads, **common
+            )
+        if self.model_family == "gpt2":
+            from ray_tpu_torch.models.gpt2 import GPT2Config
+
+            return GPT2Config(**common)
+        raise ValueError(
+            f"unknown model_family {self.model_family!r} (gpt2 | llama)"
         )
 
     def to_dict(self) -> dict:

@@ -2,8 +2,9 @@
 
 Counterpart of ``ray_tpu/llm/engine.py``, in PyTorch:
 
-- The KV cache is one static [L, B, S, H, D] pair of tensors; every decode
-  tick is one forward over ALL slots, not a per-request loop.
+- The KV cache is one static [L, B, S, H, D] pair of tensors (H: the kv
+  heads for a GQA llama); every decode tick is one forward over ALL
+  slots, not a per-request loop.
 - Prompts prefill at bucketed lengths into a batch=1 cache, then an insert
   copies it into the slot's row: requests join and leave the running batch
   without changing any shape (the "continuous" part).
@@ -17,6 +18,7 @@ updated in place by insert and decode (what JAX did by donation).
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
@@ -89,16 +91,23 @@ class DecodeEngine:
 
             with open(config.model_source, "rb") as f:
                 bundle = pickle.load(f)
-            if bundle.get("family", self.config.model_family) != "gpt2":
-                raise NotImplementedError("only gpt2 bundles are ported")
             if "config" in bundle:
                 # checkpoint architecture wins over LLMConfig defaults: a
                 # mismatch would allocate a KV cache with the wrong layout
                 self.model_config = convert.config_from_kwargs(
-                    bundle["config"]
+                    bundle["config"],
+                    bundle.get("family", self.config.model_family),
                 )
             params = convert.params_from_numpy(
                 bundle["params"], self.model_config, self.device
+            )
+        if getattr(self.model_config, "moe", None) is not None:
+            # Inference routes dropless: capacity-queue drops depend on the
+            # rest of the batch, so prefill and per-step decode would
+            # disagree (and with the full forward) on dropped tokens.
+            self.model_config = dataclasses.replace(
+                self.model_config,
+                moe=dataclasses.replace(self.model_config.moe, dropless=True),
             )
         model = module_for(self.model_config)
         self.tokenizer = load_tokenizer(config)

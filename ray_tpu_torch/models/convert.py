@@ -1,9 +1,10 @@
 """Weights carried across from the JAX package.
 
-``params_from_numpy`` turns a GPT-2 parameter tree of numpy arrays, named
-and laid out as the JAX ``init_params`` makes it, into the port's ``GPT2``
-module. The conversion from JAX arrays to numpy (``jax.tree.map(np.asarray,
-params)``) happens on the caller's side: this package never imports JAX.
+``params_from_numpy`` turns a GPT-2 or Llama parameter tree of numpy
+arrays (dense or MoE), named and laid out as the JAX ``init_params`` makes
+it, into the port's ``GPT2`` or ``Llama`` module. The conversion from JAX
+arrays to numpy (``jax.tree.map(np.asarray, params)``) happens on the
+caller's side: this package never imports JAX.
 The engine's pickled ``model_source`` bundles load through it as well.
 """
 from __future__ import annotations
@@ -14,7 +15,10 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
-from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.models import gpt2, llama, module_for
+from ray_tpu_torch.parallel.moe import MoEConfig
+
+_CONFIGS = {"gpt2": gpt2.GPT2Config, "llama": llama.LlamaConfig}
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -43,35 +47,42 @@ def tensor_from_numpy(arr: Any) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def params_from_numpy(tree: Dict[str, Any], config: "gpt2.GPT2Config",
+def params_from_numpy(tree: Dict[str, Any], config,
                       device: DeviceLike = "cuda",
-                      dtype: Optional[torch.dtype] = None) -> "gpt2.GPT2":
-    """JAX GPT-2 tree of numpy arrays -> ``GPT2`` module on ``device``, each
-    tensor in ``dtype`` (default ``config.param_dtype``). Names and layouts
-    carry over unchanged; a missing leaf or a wrong shape raises."""
+                      dtype: Optional[torch.dtype] = None):
+    """JAX GPT-2 or Llama tree of numpy arrays -> the port's module
+    (``GPT2`` or ``Llama``, by the config's type) on ``device``, each tensor
+    in ``dtype`` (default ``config.param_dtype``). Names and layouts carry
+    over unchanged, the MoE leaves under ``blocks.moe`` included; a missing
+    leaf or a wrong shape raises."""
     dev = resolve_device(device)
     dtype = dtype or config.param_dtype
+    mod = module_for(config)
+    cls = llama.Llama if mod is llama else gpt2.GPT2
 
-    def conv(x):
-        return tensor_from_numpy(x).to(dtype)
+    def conv(sub, shapes, prefix):
+        out = {}
+        for name, shape in shapes.items():
+            if name not in sub:
+                raise KeyError(f"parameter {prefix}{name} missing from the tree")
+            out[name] = (conv(sub[name], shape, f"{prefix}{name}.")
+                         if isinstance(shape, dict)
+                         else tensor_from_numpy(sub[name]).to(dtype))
+        return out
 
-    if "moe" in tree.get("blocks", {}):
-        raise NotImplementedError("MoE parameters are not ported yet")
-    torch_tree = {
-        "wte": conv(tree["wte"]),
-        "wpe": conv(tree["wpe"]),
-        "blocks": {n: conv(tree["blocks"][n]) for n in gpt2.BLOCK_PARAMS},
-        "ln_f_g": conv(tree["ln_f_g"]),
-        "ln_f_b": conv(tree["ln_f_b"]),
-    }
-    return gpt2.GPT2(config, torch_tree, device=dev)
+    return cls(config, conv(tree, mod.param_shapes(config), ""), device=dev)
 
 
-def config_from_kwargs(kwargs: Dict[str, Any]) -> "gpt2.GPT2Config":
-    """``GPT2Config`` from a bundle's saved config kwargs, dtypes mapped to
-    torch."""
+def config_from_kwargs(kwargs: Dict[str, Any], family: str = "gpt2"):
+    """``GPT2Config`` or ``LlamaConfig`` (by ``family``) from a bundle's
+    saved config kwargs, dtypes mapped to torch and a saved ``moe`` dict of
+    ``MoEConfig``'s fields to a ``MoEConfig``."""
+    if family not in _CONFIGS:
+        raise ValueError(f"unknown model family {family!r} (gpt2 | llama)")
     kw = dict(kwargs)
     for name in ("dtype", "param_dtype"):
         if name in kw:
             kw[name] = torch_dtype(kw[name])
-    return gpt2.GPT2Config(**kw)
+    if isinstance(kw.get("moe"), dict):
+        kw["moe"] = MoEConfig(**kw["moe"])
+    return _CONFIGS[family](**kw)

@@ -1,7 +1,8 @@
 """GPT-2 in PyTorch: the model the port serves and trains.
 
-Counterpart of ``ray_tpu/models/gpt2.py`` (dense path): learned positional
-embeddings, pre-LN transformer blocks, tanh-GELU MLP, weight-tied LM head.
+Counterpart of ``ray_tpu/models/gpt2.py``: learned positional embeddings,
+pre-LN transformer blocks, tanh-GELU MLP (or, with ``moe``, routed experts,
+``parallel/moe.py``), weight-tied LM head.
 The parameters keep the JAX tree's names and layouts (``qkv_w`` is
 [L, E, 3, H, D], ``proj_w`` [L, H, D, E], every block parameter stacked on
 a leading L), so a JAX ``init_params`` tree converts one to one
@@ -24,17 +25,17 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
+from ray_tpu_torch.models import common
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.xent import chunked_softmax_xent
-
-_REMAT_POLICIES = ("dots", "dots_all", "full")
+from ray_tpu_torch.parallel.moe import (
+    MoEConfig,
+    init_moe_params,
+    moe_layer,
+    moe_param_shapes,
+)
 
 BLOCK_PARAMS = (
     "ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
@@ -61,16 +62,14 @@ class GPT2Config:
     # included, in the backward.
     remat: bool = True
     remat_policy: str = "dots"
-    # Mesh options of the JAX config: ring/ulysses and MoE raise.
+    # Mesh option of the JAX config: ring/ulysses raise.
     seq_axis: str = "seq"
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None  # routed experts in place of each MLP
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError("MoE is not ported yet")
-        if self.remat_policy not in _REMAT_POLICIES:
+        if self.remat_policy not in common.POLICIES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
-                             f"one of {_REMAT_POLICIES}")
+                             f"one of {common.POLICIES}")
         if self.attention_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attention_impl={self.attention_impl!r} needs the parallel "
@@ -118,6 +117,8 @@ def param_shapes(config: GPT2Config) -> Dict[str, Any]:
             "ln2_g": (L, E), "ln2_b": (L, E),
             "fc_w": (L, E, M), "fc_b": (L, M),
             "out_w": (L, M, E), "out_b": (L, E),
+            **({"moe": moe_param_shapes(E, M, config.moe, L)}
+               if config.moe is not None else {}),
         },
         "ln_f_g": (E,),
         "ln_f_b": (E,),
@@ -128,7 +129,8 @@ def init_params(config: GPT2Config, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = "cuda") -> "GPT2":
     """Fresh parameters: normal(0.02) embeddings and projections,
     residual-scaled output projections (std 0.02 / sqrt(2L)), unit norms,
-    zero biases, as the JAX ``init_params``. Drawn on the CPU from
+    zero biases, as the JAX ``init_params``; with ``moe``, expert weights
+    as well (the dense MLP's stay, unused, as in JAX). Drawn on the CPU from
     ``generator`` (seed 0 when None), so a seed gives the same weights on
     every device. The JAX and torch generators differ: tests that need the
     same weights in both convert the JAX tree instead."""
@@ -165,6 +167,10 @@ def init_params(config: GPT2Config, generator: Optional[torch.Generator] = None,
         "ln_f_g": torch.ones(shapes["ln_f_g"], dtype=pd),
         "ln_f_b": torch.zeros(shapes["ln_f_b"], dtype=pd),
     }
+    if config.moe is not None:
+        tree["blocks"]["moe"] = init_moe_params(
+            generator, config.embed_dim, config.mlp_dim, config.moe, pd,
+            num_layers=config.num_layers)
     return GPT2(config, tree, device=dev)
 
 
@@ -194,6 +200,11 @@ class GPT2(nn.Module):
             n: param(tree["blocks"][n], shapes["blocks"][n], f"blocks.{n}")
             for n in BLOCK_PARAMS
         })
+        if config.moe is not None:
+            self.blocks["moe"] = nn.ParameterDict({
+                n: param(tree["blocks"]["moe"][n], shape, f"blocks.moe.{n}")
+                for n, shape in shapes["blocks"]["moe"].items()
+            })
         self.ln_f_g = param(tree["ln_f_g"], shapes["ln_f_g"], "ln_f_g")
         self.ln_f_b = param(tree["ln_f_b"], shapes["ln_f_b"], "ln_f_b")
 
@@ -227,10 +238,13 @@ def _attn_residual(layer, x, attn):
     return x + attn + layer["proj_b"].to(x.dtype)
 
 
-def _mlp_residual(config: GPT2Config, layer, x):
-    """ln2 + MLP + residual. Returns (x, aux loss); the aux loss is MoE's,
-    so it is 0.0 until MoE is ported."""
+def _mlp_residual(config: GPT2Config, layer, x, rng=None):
+    """ln2 + MLP (or MoE) + residual. Returns (x, aux loss); the aux loss is
+    MoE's (0.0 for the dense MLP)."""
     h = _layer_norm(x, layer["ln2_g"], layer["ln2_b"])
+    if config.moe is not None:
+        h, aux = moe_layer(layer["moe"], h, config.moe, rng=rng)
+        return x + h, aux
     h = torch.einsum("bte,em->btm", h, layer["fc_w"].to(h.dtype))
     # jax.nn.gelu's default is the tanh approximation
     h = F.gelu(h + layer["fc_b"].to(h.dtype), approximate="tanh")
@@ -238,78 +252,50 @@ def _mlp_residual(config: GPT2Config, layer, x):
     return x + h + layer["out_b"].to(h.dtype), 0.0
 
 
-def _block(config: GPT2Config, x, layer):
+def _block(config: GPT2Config, x, layer, seed=None):
     """One transformer block. x: [B, T, E]; layer: one slice of the stacked
-    block parameters."""
+    block parameters; ``seed`` (an int, or None) seeds the MoE router's
+    jitter, so a re-run under checkpointing draws the same noise."""
     h = _layer_norm(x, layer["ln1_g"], layer["ln1_b"])
     q, k, v = _qkv(layer, h)
     attn = attention(q, k, v, causal=True, impl=config.attention_impl)
     x = _attn_residual(layer, x, attn)
-    return _mlp_residual(config, layer, x)
+    return _mlp_residual(config, layer, x,
+                         rng=common.layer_generator(seed, x.device))
 
 
-def _layer(params, i: int) -> Dict[str, torch.Tensor]:
+def _layer(params, i: int) -> Dict[str, Any]:
     blocks = params["blocks"]
-    return {n: blocks[n][i] for n in BLOCK_PARAMS}
+    layer = {n: blocks[n][i] for n in BLOCK_PARAMS}
+    if "moe" in blocks:
+        layer["moe"] = {n: w[i] for n, w in blocks["moe"].items()}
+    return layer
 
 
-_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-# batched product -> position of its [batch, n, k] operand
-_BATCHED_DOTS = {torch.ops.aten.bmm.default: 0, torch.ops.aten.baddbmm.default: 1}
-
-
-def _remat_policy(policy: str, ctx, func, *args, **kwargs):
-    """Selective-checkpoint policy of one block (JAX ``_remat_policy``,
-    gpt2.py:159): MUST_SAVE the flash forward's (out, lse), the analog of
-    ``save_only_these_names("flash_out", "flash_lse")``, and the matrix
-    products that the policy keeps. ``torch.einsum`` lowers a projection to
-    ``bmm`` with a batch of 1 and a batched product (the dense attention's)
-    to ``bmm`` with a larger batch: "dots" keeps the first kind
-    (``dots_with_no_batch_dims_saveable``), "dots_all" both
-    (``dots_saveable``)."""
-    if func is torch.ops.ray_tpu_torch.flash_fwd_lse.default:
-        return CheckpointPolicy.MUST_SAVE
-    if func in _NO_BATCH_DOTS or (func in _BATCHED_DOTS and (
-            policy == "dots_all" or args[_BATCHED_DOTS[func]].shape[0] == 1)):
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def _checkpointed(config: GPT2Config):
-    """``_block`` under the config's activation checkpointing when autograd
-    records (plain ``_block`` with ``remat=False`` or without grad; only the
-    block inputs kept under "full")."""
-    block = functools.partial(_block, config)
-    if not (config.remat and torch.is_grad_enabled()):
-        return block
-    kw = {"use_reentrant": False}
-    if config.remat_policy != "full":
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts,
-            functools.partial(_remat_policy, config.remat_policy))
-    return lambda x, layer: checkpoint(block, x, layer, **kw)
-
-
-def forward_features(params, tokens: torch.Tensor, config: GPT2Config):
+def forward_features(params, tokens: torch.Tensor, config: GPT2Config,
+                     rng: Optional[torch.Generator] = None):
     """tokens [B, T] int -> (final-trunk features [B, T, E], aux loss).
     Under autograd each block runs under ``config.remat``/``remat_policy``;
     the loss path consumes the features directly (``ops/xent.py``), so the
-    [B, T, V] logits never materialise."""
+    [B, T, V] logits never materialise. ``rng`` (a CPU generator) feeds the
+    MoE router's jitter."""
     B, T = tokens.shape
     x = params["wte"][tokens].to(config.dtype)
     x = x + params["wpe"][:T][None].to(config.dtype)
     aux = 0.0
-    block = _checkpointed(config)
-    for i in range(config.num_layers):
-        x, layer_aux = block(x, _layer(params, i))
+    block = common.checkpointed(functools.partial(_block, config),
+                               config.remat, config.remat_policy)
+    for i, seed in enumerate(common.layer_seeds(rng, config)):
+        x, layer_aux = block(x, _layer(params, i), seed)
         aux = aux + layer_aux
     x = _layer_norm(x, params["ln_f_g"], params["ln_f_b"])
     return x, aux
 
 
-def forward(params, tokens: torch.Tensor, config: GPT2Config):
+def forward(params, tokens: torch.Tensor, config: GPT2Config,
+            rng: Optional[torch.Generator] = None):
     """tokens [B, T] int -> (logits [B, T, V] f32, aux loss)."""
-    x, aux = forward_features(params, tokens, config)
+    x, aux = forward_features(params, tokens, config, rng=rng)
     logits = torch.einsum("bte,ve->btv", x, params["wte"].to(x.dtype))
     return logits.to(torch.float32), aux
 
@@ -331,7 +317,8 @@ def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
 
     tokens [B, T]: a prompt chunk (prefill) or one decode step (T=1);
     start [B] int: absolute position of tokens[:, 0] per sequence. Returns
-    (logits [B, T, V] f32, cache).
+    (logits [B, T, V] f32, cache). MoE configs route each token through its
+    top-k experts; the aux loss is dropped here, as in JAX.
 
     Unlike the JAX function, this one writes the new K/V into ``cache`` IN
     PLACE and returns the same dict: a copy of the whole cache per decode
@@ -379,28 +366,19 @@ def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
 
 
 def loss_fn(params, batch: Dict[str, Any], config: GPT2Config,
-            pipeline_microbatches: Optional[int] = None) -> torch.Tensor:
-    """Next-token cross entropy, an f32 scalar. batch: {"tokens": [B, T+1]}
-    or {"inputs": [B, T], "targets": [B, T]}, with an optional "mask"
-    [B, T] of weights. Tensors or numpy arrays; they move to the params'
-    device. The pipelined path needs the parallel layer, which is not ported
-    yet."""
+            pipeline_microbatches: Optional[int] = None,
+            rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Next-token cross entropy plus the MoE aux loss, an f32 scalar. batch:
+    {"tokens": [B, T+1]} or {"inputs": [B, T], "targets": [B, T]}, with an
+    optional "mask" [B, T] of weights. Tensors or numpy arrays; they move to
+    the params' device. ``rng`` feeds the MoE router's jitter. The pipelined
+    path needs the parallel layer, which is not ported yet."""
     if pipeline_microbatches:
         raise NotImplementedError(
             "pipeline_microbatches needs the parallel layer, which is not "
             "ported yet")
-    dev = params["wte"].device
-
-    def get(name):
-        return torch.as_tensor(batch[name], device=dev)
-
-    if "tokens" in batch:
-        tokens = get("tokens")
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    else:
-        inputs, targets = get("inputs"), get("targets")
-    mask = get("mask") if batch.get("mask") is not None else None
-    x, aux = forward_features(params, inputs, config)
+    inputs, targets, mask = common.next_token_batch(batch, params["wte"].device)
+    x, aux = forward_features(params, inputs, config, rng=rng)
     return chunked_softmax_xent(x, params["wte"], targets, mask) + aux
 
 

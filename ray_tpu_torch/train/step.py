@@ -89,7 +89,10 @@ class ClipAdamW:
         """Update ``count`` (0-based) from the gradients in ``.grad``, in
         place. Returns the global gradient norm before clipping (a 0-dim
         f32 tensor on the parameters' device)."""
-        grads = [p.grad for p in params.parameters() if p.grad is not None]
+        for p in params.parameters():
+            if p.grad is None:  # unused (GPT-2's dense MLP beside its
+                p.grad = torch.zeros_like(p)  # experts): JAX's zero grads
+        grads = [p.grad for p in params.parameters()]
         norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
         # optax scales by max_norm / norm only when norm >= max_norm (no eps)
@@ -123,23 +126,31 @@ def _no_mesh(mesh, rules) -> None:
 
 
 def make_train_step(config, opt: ClipAdamW, mesh=None, rules=None,
-                    pipeline_microbatches: Optional[int] = None) -> Callable:
+                    pipeline_microbatches: Optional[int] = None,
+                    seed: int = 0) -> Callable:
     """(state, batch) -> (state, {"loss", "grad_norm", "step"}).
 
-    One forward and backward of ``loss_fn`` and one optimizer update.
-    ``grad_norm`` is the global norm before clipping. The parameters and
-    optimizer state are updated in place (the analog of the JAX step's
-    ``donate=True``), and the returned state holds the same objects with
-    ``step`` advanced. Loss and norm stay on the device: reading them
-    synchronises."""
+    One forward and backward of ``loss_fn`` (the MoE aux loss included) and
+    one optimizer update. ``grad_norm`` is the global norm before clipping.
+    The parameters and optimizer state are updated in place (the analog of
+    the JAX step's ``donate=True``), and the returned state holds the same
+    objects with ``step`` advanced. Loss and norm stay on the device:
+    reading them synchronises. A jittered MoE router draws from a generator
+    seeded by ``seed`` and the step number (JAX folds the step into its
+    key; the two draw different numbers)."""
     _no_mesh(mesh, rules)
     model = module_for(config)
+    moe = getattr(config, "moe", None)
+    needs_rng = moe is not None and moe.router_jitter > 0
 
     def step(state, batch):
         params = state["params"]
         params.zero_grad(set_to_none=True)
+        rng = (torch.Generator().manual_seed((seed << 32) + state["step"])
+               if needs_rng else None)
         loss = model.loss_fn(params, batch, config,
-                             pipeline_microbatches=pipeline_microbatches)
+                             pipeline_microbatches=pipeline_microbatches,
+                             rng=rng)
         loss.backward()
         grad_norm = opt.update(state["opt_state"], params, state["step"])
         n = state["step"] + 1

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where the port's GPT-2 train step spends its time, on one CUDA card.
+"""Where the port's train step spends its time, on one CUDA card.
 
-    python3 scripts/torch_train_profile.py [--remat-policy dots|dots_all|full|none]
+    python3 scripts/torch_train_profile.py [--model gpt2-small|llama-1b]
+                                           [--remat-policy dots|dots_all|full|none]
                                            [--table-out PATH]
 
-GPT-2 small at published widths (random weights and one batch of random
-tokens, from seeds), B=32, T=1024, bf16 activations over f32 parameters,
-``make_train_step`` with flash attention (K2, K3, K4). After three warm-up
-steps it prints, beside the card's name and power limit:
+A model preset at published widths (random weights and one batch of random
+tokens, from seeds): GPT-2 small at B=32, T=1024 (the default), or llama-1b
+at B=8, T=2048; bf16 activations over f32 parameters, ``make_train_step``
+with flash attention (K2, K3, K4). After three warm-up steps it prints,
+beside the card's name and power limit:
 
 - step ms: the median of five steps on the host clock, each ending in a
   synchronise;
@@ -51,10 +53,16 @@ def group_of(name: str) -> str:
     return "other elementwise"
 
 
+# Each preset's training shape (B, T): GPT-2 small at the JAX bench's
+# (bench.py:103), llama-1b at chip_smoke.py's.
+BATCH = {"gpt2-small": (32, 1024), "llama-1b": (8, 2048)}
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", default="gpt2-small", choices=sorted(BATCH))
     ap.add_argument("--remat-policy", default="dots",
                     choices=("dots", "dots_all", "full", "none"))
     ap.add_argument("--table-out", help="file for the full aten op table")
@@ -66,7 +74,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch._private.device import card_info
-    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models import get_preset
     from ray_tpu_torch.train import (
         OptimizerConfig,
         create_train_state,
@@ -76,10 +84,11 @@ def main() -> int:
     card = card_info()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    B, T = 32, 1024
+    B, T = BATCH[args.model]
     remat = dict(remat=False) if args.remat_policy == "none" else dict(
         remat=True, remat_policy=args.remat_policy)
-    cfg = dataclasses.replace(gpt2.GPT2_SMALL, attention_impl="flash", **remat)
+    cfg = dataclasses.replace(get_preset(args.model), attention_impl="flash",
+                              **remat)
     opt = OptimizerConfig(learning_rate=1e-3, warmup_steps=2,
                           total_steps=20).build()
     state = create_train_state(cfg, opt, torch.Generator().manual_seed(0), dev)
@@ -100,7 +109,7 @@ def main() -> int:
         times.append((time.perf_counter() - t) * 1e3)
     step_ms = statistics.median(times)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[{card}] train step GPT-2 small B={B} T={T} remat "
+    print(f"[{card}] train step {args.model} B={B} T={T} remat "
           f"{args.remat_policy}: median {step_ms:.2f} ms over 5 steps "
           f"({', '.join(f'{x:.1f}' for x in times)}), "
           f"{B * T / step_ms * 1e3:.0f} tokens/s, peak memory {peak_gb:.2f} GB, "

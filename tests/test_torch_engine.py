@@ -243,6 +243,8 @@ _PORT_MODULES = [
     "ray_tpu_torch.llm", "ray_tpu_torch.llm.config",
     "ray_tpu_torch.llm.engine", "ray_tpu_torch.ops.xent",
     "ray_tpu_torch.train", "ray_tpu_torch.train.step",
+    "ray_tpu_torch.models.llama", "ray_tpu_torch.models.common",
+    "ray_tpu_torch.parallel", "ray_tpu_torch.parallel.moe",
 ]
 
 

@@ -164,11 +164,11 @@ def test_presets_and_unported_options():
     small = tgpt2.GPT2_SMALL
     assert (small.num_layers, small.num_heads, small.embed_dim,
             small.head_dim, small.vocab_size) == (12, 12, 768, 64, 50304)
-    with pytest.raises(NotImplementedError):
-        get_preset("llama-tiny")
+    # llama is ported: its presets resolve to the port's configs
+    from ray_tpu_torch.models import llama as tllama
+    assert get_preset("llama-tiny") == tllama.LLAMA_TINY
+    assert module_for(tllama.LLAMA_1B) is tllama
     with pytest.raises(KeyError):
         get_preset("nope")
-    with pytest.raises(NotImplementedError):
-        tgpt2.GPT2Config(moe=object())
     with pytest.raises(NotImplementedError):
         tgpt2.GPT2Config(attention_impl="ring")
