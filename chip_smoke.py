@@ -22,9 +22,19 @@ Phases, in order; any failure exits non-zero:
 3. The serving path, part one: the GPT-2-small full-sequence forward
    (B=2, T=256) through K1, in bf16 and f32, against the dense version;
    one forward launches K1 once per layer.
-4. The serving path, part two: an f32 engine at GPT-2-small width whose
-   greedy tokens must equal argmax over the full forward through K1,
-   re-run per step; then a bf16 engine answering 16 mixed requests.
+4. The serving path, part two: engines at GPT-2-small width, each
+   capturing its programs as CUDA graphs when it is built (decode, one
+   prefill per bucket and, with speculation, decode_all). Each program is
+   held against ``forward_cached`` called eagerly on the original f32
+   parameters, on a clone of the same cache and the same inputs (f32
+   within 2e-5 + 2e-5|x|, bf16 within 1e-2 + 1e-2|x|, next tokens equal).
+   An f32 engine whose greedy tokens must equal argmax over the full
+   forward through K1, re-run per step; the same weights with
+   ``speculative_ngram_k=4``, whose greedy tokens must equal the plain
+   engine's; then a bf16 engine answering 16 mixed requests and the same
+   prompts all greedy: ms per tick at 8 slots, the decode replay's device
+   ms, prefill ms per bucket and the memory the engine adds, beside eager
+   ``forward_cached`` (host ms, and device ms from a graph of it).
 5. The training path: GPT-2 small at B=32, T=1024, bf16 activations over
    f32 parameters, remat "dots", 12 steps of ``make_train_step`` on one
    seeded batch: finite losses, the first near ln(V), a falling loss, and
@@ -42,9 +52,10 @@ Phases, in order; any failure exits non-zero:
 8. Llama serving at llama-1b width (L=16, H=32, KV=8, E=2048, M=5504,
    V=32000; ``LLMConfig(model_family="llama")``): the full forward (B=2,
    T=256) through K1 in bf16 and f32 against the dense version, 16 K1
-   launches a forward; an f32 engine whose greedy tokens equal argmax over
-   the full forward through K1; a bf16 engine answering phase 4's 16
-   requests; decode tokens/s, ms per tick, prefill ms per bucket.
+   launches a forward; graphed f32 and bf16 engines held against eager
+   ``forward_cached`` as in phase 4; the f32 engine's greedy tokens equal
+   argmax over the full forward through K1; the bf16 engine answers phase
+   4's requests, with phase 4's numbers.
 9. Llama training: the ``llama-1b`` preset (rope_theta 500000) at B=8,
    T=2048, bf16 over f32 parameters, remat "dots", 12 steps: finite
    losses, the first within 0.5 of ln(32000), a falling loss, per step 16
@@ -53,20 +64,32 @@ Phases, in order; any failure exits non-zero:
 10. Llama training parity: f32, llama-1b width at depth 2, B=2, T=256, 3
     steps through the kernels against the plain path, within 2e-4.
 11. MoE: a llama of 8 SwiGLU experts, top-2, at llama-1b width and depth
-    2, in f32: the engine's greedy tokens (dropless routing) equal argmax
-    over the full forward through K1; one capacity-routed train step
-    through K2-K4 gives a finite loss and a positive aux loss.
+    2, in f32: the graphed engine (dropless routing) against eager
+    ``forward_cached``, its greedy tokens equal to argmax over the full
+    forward through K1; one capacity-routed train step through K2-K4 gives
+    a finite loss and a positive aux loss.
+12. The OpenAI surface at GPT-2-small width, f32, on the card:
+    ``LLMServer(device="cuda")`` completions (with a logprobs block) and
+    chat whose tokens equal argmax over the full forward through K1; a
+    stream whose joined deltas equal the completion's text and end in
+    ``[DONE]``; ``PDIngress`` over in-process handles on a prefill and a
+    decode server, equal to the monolithic engine for a seeded top-p
+    request; the batch stage over 16 prompts, each row equal to its prompt
+    alone; the requests' tokens/s of 16 concurrent completions.
 
 Launch counts are set to 0 just before each main path and read just
-after it: K1's before phase 3 and after phase 4 (GPT-2 serving) and before
-and after phase 8 (llama serving); K2-K4's before and after the 12 steps of
-phase 5 (GPT-2) and of phase 9 (llama). The last lines are the card, the
+after it: K1's before phase 3 and after phase 4 (GPT-2 serving), before
+and after phase 8 (llama serving) and phase 12 (the OpenAI surface, where
+K1 runs the full-forward yardstick); K2-K4's before and after the 12 steps
+of phase 5 (GPT-2) and of phase 9 (llama). The engines' programs count
+their graph replays; each must replay on its main path. The last lines are the card, the
 ``kernels`` JSON line and the result line. It imports nothing of JAX and
 nothing of ``ray_tpu``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -74,6 +97,8 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -336,7 +361,18 @@ def main() -> int:
     import torch.nn.functional as F
 
     from ray_tpu_torch._private.device import card_info
-    from ray_tpu_torch.llm import DecodeEngine, LLMConfig, SamplingParams
+    from ray_tpu_torch.llm import (
+        DecodeEngine,
+        LLMConfig,
+        LLMServer,
+        SamplingParams,
+    )
+    from ray_tpu_torch.llm.batch import _EngineStage
+    from ray_tpu_torch.llm.serving_patterns import (
+        DecodeServer,
+        PDIngress,
+        PrefillServer,
+    )
     from ray_tpu_torch.models import get_preset, gpt2, llama
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as attn
@@ -513,53 +549,146 @@ def main() -> int:
               f"({e_flash:.3e}) than the dense bf16 path ({e_xla:.3e})")
         return per_forward
 
+    def forward_argmax(mod, eng, prompt, n_new):
+        """Greedy tokens by argmax over the full forward through K1, re-run
+        per step on ``eng``'s parameters, the stop token dropped."""
+        cfg_ref = dataclasses.replace(eng.model_config, attention_impl="flash")
+        seq, expect = list(prompt), []
+        with torch.no_grad():
+            for _ in range(n_new):
+                logits, _ = mod.forward(
+                    eng.params, torch.tensor([seq], device=dev), cfg_ref)
+                nxt = int(logits[0, -1].argmax())
+                expect.append(nxt)
+                if nxt == eng.tokenizer.eos_id:
+                    break
+                seq.append(nxt)
+        return [t for t in expect if t != eng.tokenizer.eos_id]
+
     def greedy_matches_forward(label, mod, eng, prompts, n_new):
         """The engine's greedy tokens equal argmax over the full forward
-        through K1, re-run per step."""
+        through K1, re-run per step. Returns the engine's tokens."""
         try:
             futs = [eng.submit(p, SamplingParams(max_new_tokens=n_new))
                     for p in prompts]
             got = [list(f.result(600)) for f in futs]
         finally:
             eng.shutdown()
-        cfg_ref = dataclasses.replace(eng.model_config, attention_impl="flash")
+        for prompt, out in zip(prompts, got):
+            expect = forward_argmax(mod, eng, prompt, n_new)
+            log(f"{label} greedy {out}")
+            check(len(out) >= 1 and out == expect[:len(out)],
+                  f"{label} tokens {out} != K1 full-forward argmax {expect}")
+        return got
+
+    def build_engine(label, cfg, params):
+        """A DecodeEngine on the card (its programs captured as it is
+        built), with the seconds and the device memory it adds: allocated
+        (caches, the weights cast once, its graphs' outputs) and reserved
+        (its graphs' pools too), after dropped engines were released."""
+        release()
+        torch.cuda.synchronize()
+        alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        t = time.perf_counter()
+        eng = DecodeEngine(cfg, params=params, device=dev)
+        torch.cuda.synchronize()
+        built_s = time.perf_counter() - t
+        shared = {w.data_ptr() for w in params.parameters()}
+        cast_gb = sum(t.numel() * t.element_size() for t in leaves(eng._run_params)
+                      if t.data_ptr() not in shared) / 1e9
+        cache_gb = sum(t.numel() * t.element_size() for t in
+                       [*eng._cache.values(), *eng._slot_cache.values()]) / 1e9
+        eng.added_gb = ((torch.cuda.memory_allocated() - alloc0) / 1e9,
+                        (torch.cuda.memory_reserved() - res0) / 1e9,
+                        cast_gb, cache_gb)
+        progs = programs(eng)
+        check(all(p.graph is not None for p in progs.values()),
+              f"{label}: a program was not captured")
+        log(f"{label}: built in {built_s:.2f} s with {len(progs)} captured "
+            f"programs ({', '.join(progs)}); adds {eng.added_gb[0]:.3f} GB "
+            f"allocated ({cast_gb:.3f} of weights cast once, {cache_gb:.3f} of "
+            f"batch and slot caches), {eng.added_gb[1]:.3f} GB reserved")
+        return eng
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+    def programs(eng):
+        progs = {"decode": eng._decode}
+        if eng._decode_spec is not None:
+            progs["decode_all"] = eng._decode_spec
+        progs.update({f"prefill{b}": p for b, p in eng._prefill.items()})
+        return progs
+
+    def replays(eng):
+        return {n: p.replays for n, p in programs(eng).items()}
+
+    def release():
+        """Return the device memory of engines dropped (shut down and
+        deleted) to the card: their graphs' pools go with them."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def graph_against_eager(label, mod, eng):
+        """Each of the engine's programs (decode, decode_all, every prefill
+        bucket) against ``forward_cached`` called eagerly with the original
+        f32 parameters, on a clone of the same cache and the same inputs:
+        logits and caches within TOL of the dtype, next tokens equal."""
+        cfg = eng.model_config
+        dname = "float32" if cfg.dtype == torch.float32 else "bfloat16"
+        B, S = eng.config.max_batch_slots, eng.config.max_seq_len
+        worst = 0.0
+
+        def compare(what, got, ref, got_cache, ref_cache):
+            nonlocal worst
+            err, nbad = close(got, ref, TOL[dname])
+            cerr = max(close(got_cache[k], ref_cache[k], TOL[dname])[1]
+                       for k in ref_cache)
+            same = bool((got.argmax(-1) == ref.argmax(-1)).all())
+            worst = max(worst, err)
+            check(nbad == 0 and cerr == 0 and same,
+                  f"{label} {what}: graph against eager max err {err:.3e}, "
+                  f"{nbad} logits and {cerr} cache entries outside "
+                  f"{TOL[dname]}, next tokens equal: {same}")
+
         with torch.no_grad():
-            for prompt, out in zip(prompts, got):
-                seq, expect = list(prompt), []
-                for _ in range(n_new):
-                    logits, _ = mod.forward(
-                        eng.params, torch.tensor([seq], device=dev), cfg_ref)
-                    nxt = int(logits[0, -1].argmax())
-                    expect.append(nxt)
-                    if nxt == eng.tokenizer.eos_id:
-                        break
-                    seq.append(nxt)
-                expect = [t for t in expect if t != eng.tokenizer.eos_id]
-                log(f"{label} greedy {out}")
-                check(len(out) >= 1 and out == expect[:len(out)],
-                      f"{label} tokens {out} != K1 full-forward argmax {expect}")
+            for c in eng._cache.values():
+                c.normal_(generator=gen)
+            lens = torch.randint(1, S // 2, (B,), device=dev, generator=gen)
+            for name, prog in programs(eng).items():
+                if not name.startswith("decode"):
+                    continue
+                toks = torch.randint(2, 258, tuple(prog.buffers["tokens"].shape),
+                                     device=dev, generator=gen)
+                ref_cache = {k: v.clone() for k, v in eng._cache.items()}
+                got = prog(tokens=toks, lens=lens)
+                ref, _ = mod.forward_cached(eng.params, toks, ref_cache, lens, cfg)
+                compare(name, got, ref[:, -1] if name == "decode" else ref,
+                        eng._cache, ref_cache)
+            start = torch.zeros(1, dtype=torch.long, device=dev)
+            for b, prog in eng._prefill.items():
+                for v in eng._slot_cache.values():
+                    v.zero_()
+                toks = torch.randint(2, 258, (1, b), device=dev, generator=gen)
+                got, got_cache = prog(tokens=toks, start=start)
+                ref, ref_cache = mod.forward_cached(
+                    eng.params, toks, mod.init_kv_cache(cfg, 1, S, device=dev),
+                    start, cfg)
+                compare(f"prefill{b}", got, ref, got_cache, ref_cache)
+        log(f"{label}: {len(programs(eng))} programs' graphs against eager "
+            f"forward_cached on the f32 parameters: max|graph-eager| "
+            f"{worst:.3e} (bound {TOL[dname][0]:g} + {TOL[dname][1]:g}|eager|), "
+            "next tokens equal")
 
     text = ("Ray is a framework for scaling Python and AI workloads: tasks, "
             "actors and objects on a cluster, with libraries for training, "
             "tuning, serving and data. This port runs its models on the "
             "card. ") * 3
 
-    def mixed_requests(eng, label):
-        """16 mixed requests (8-200 bytes, 32 new tokens; a third greedy, a
-        third top-p, a third seeded top-k) through ``eng``; then prefill ms
-        per bucket, the eager decode forward at 8 slots and host sampling.
-        Returns the numbers."""
-        lengths = np.random.RandomState(0).randint(8, 201, size=16)
-        requests = []
-        for i, n in enumerate(lengths):
-            if i % 3 == 0:
-                sp = SamplingParams(max_new_tokens=32)
-            elif i % 3 == 1:
-                sp = SamplingParams(max_new_tokens=32, temperature=0.8, top_p=0.9)
-            else:
-                sp = SamplingParams(max_new_tokens=32, temperature=1.0, top_k=50,
-                                    seed=i)
-            requests.append((eng.tokenizer.encode(text[i:i + int(n)]), sp))
+    def serve_timed(eng, requests):
+        """Answer ``requests`` [(prompt ids, SamplingParams)] all at once;
+        returns (outputs, seconds, [(active slots, tick seconds)])."""
         ticks = []
         plain_tick = eng._tick_plain_locked
 
@@ -578,33 +707,77 @@ def main() -> int:
             serve_s = time.perf_counter() - t
         finally:
             eng.shutdown()
+            eng._tick_plain_locked = plain_tick
+        return outs, serve_s, ticks
+
+    def mixed_requests(eng, mod, label):
+        """16 mixed requests (8-200 bytes, 32 new tokens; a third greedy, a
+        third top-p, a third seeded top-k) through ``eng``, then the same
+        prompts all greedy; then the engine's programs timed (the decode
+        replay's device ms, each program call, each prefill bucket) beside
+        ``forward_cached`` called eagerly on the f32 parameters (host ms and,
+        from a graph of it, device ms), and host sampling. Returns the
+        numbers."""
+        lengths = np.random.RandomState(0).randint(8, 201, size=16)
+        requests = []
+        for i, n in enumerate(lengths):
+            if i % 3 == 0:
+                sp = SamplingParams(max_new_tokens=32)
+            elif i % 3 == 1:
+                sp = SamplingParams(max_new_tokens=32, temperature=0.8, top_p=0.9)
+            else:
+                sp = SamplingParams(max_new_tokens=32, temperature=1.0, top_k=50,
+                                    seed=i)
+            requests.append((eng.tokenizer.encode(text[i:i + int(n)]), sp))
+        before = replays(eng)
+        tokens0 = eng.stats["tokens_generated"]
+        outs, serve_s, ticks = serve_timed(eng, requests)
+        produced = eng.stats["tokens_generated"] - tokens0 + len(outs)  # + first tokens
+        main = {n: r - before[n] for n, r in replays(eng).items()}
+        greedy_outs, greedy_s, greedy_ticks = serve_timed(
+            eng, [(p, SamplingParams(max_new_tokens=32)) for p, _ in requests])
         vocab = eng.model_config.vocab_size
-        check(all(len(o) >= 1 for o in outs), f"{label}: a request returned nothing")
-        check(all(0 <= x < vocab for o in outs for x in o), f"{label}: bad ids")
-        produced = eng.stats["tokens_generated"] + len(outs)  # + first tokens
+        for o in outs + greedy_outs:
+            check(len(o) >= 1 and all(0 <= x < vocab for x in o),
+                  f"{label}: a request returned nothing or bad ids")
         full = [dt for n, dt in ticks if n == 8]
-        check(len(full) > 0, f"{label}: no tick ran with 8 active slots")
+        full_greedy = [dt for n, dt in greedy_ticks if n == 8]
+        check(len(full) > 0 and len(full_greedy) > 0,
+              f"{label}: no tick ran with 8 active slots")
+        check(all(v > 0 for v in main.values()),
+              f"{label}: a program was not replayed on the main path: {main}")
         log(f"{label}: {len(outs)} requests answered, output lengths "
-            f"{[len(o) for o in outs]}")
+            f"{[len(o) for o in outs]}; program replays {main}")
 
-        # Prefill ms per bucket (batch 1, the engine's own prefill function).
-        prefill_ms = {}
-        for bucket in eng.config.prefill_buckets:
-            toks = torch.randint(2, 258, (1, bucket), device=dev, generator=gen)
+        cfg = eng.model_config
+        S = eng.config.max_seq_len
+        with torch.no_grad():
+            toks8 = torch.randint(2, 258, (8, 1), device=dev, generator=gen)
+            lens8 = torch.full((8,), 300, dtype=torch.long, device=dev)
+            cache8 = {k: v.clone() for k, v in eng._cache.items()}
+
+            def eager_decode():
+                mod.forward_cached(eng.params, toks8, cache8, lens8, cfg)
+
+            decode = dict(
+                replay_ms=cuda_ms(eng._decode.graph.replay, iters=50),
+                call_ms=cuda_ms(lambda: eng._decode(tokens=toks8, lens=lens8),
+                                iters=50),
+                eager_ms=cuda_ms(eager_decode, iters=20),
+                eager_device_ms=graph_ms(eager_decode, reps=10))
+            del cache8
+            prefill = {}
             start = torch.zeros(1, dtype=torch.long, device=dev)
-
-            def run_prefill():
-                eng._prefill(eng.params, toks, eng._empty_slot_cache(), start)
-
-            prefill_ms[bucket] = cuda_ms(run_prefill, iters=10)
-
-        # Where a tick goes: the device forward of one decode step at 8
-        # slots (eager, as the engine runs it) and the host sampling of one
-        # slot.
-        toks8 = torch.randint(2, 258, (8, 1), device=dev, generator=gen)
-        lens8 = torch.full((8,), 300, dtype=torch.long, device=dev)
-        decode_ms = cuda_ms(
-            lambda: eng._decode(eng.params, toks8, eng._cache, lens8), iters=20)
+            cache1 = mod.init_kv_cache(cfg, 1, S, device=dev)
+            for b, prog in eng._prefill.items():
+                toks = torch.randint(2, 258, (1, b), device=dev, generator=gen)
+                prefill[b] = dict(
+                    replay_ms=cuda_ms(prog.graph.replay, iters=20),
+                    call_ms=cuda_ms(lambda: prog(tokens=toks, start=start),
+                                    iters=20),
+                    eager_ms=cuda_ms(lambda: mod.forward_cached(
+                        eng.params, toks, cache1, start, cfg), iters=10))
+            del cache1
         row = np.random.RandomState(1).randn(vocab).astype(np.float32)
         sample_ms = {}
         for kind, sp in (("greedy", requests[0][1]), ("top_p", requests[1][1]),
@@ -615,19 +788,35 @@ def main() -> int:
             sample_ms[kind] = (time.perf_counter() - t) / 20 * 1e3
         return dict(produced=produced, serve_s=serve_s,
                     tick8_ms=float(np.median(full)) * 1e3, n_full=len(full),
-                    prefill_ms=prefill_ms, decode_ms=decode_ms,
-                    sample_ms=sample_ms)
+                    greedy_tick8_ms=float(np.median(full_greedy)) * 1e3,
+                    n_full_greedy=len(full_greedy), decode=decode,
+                    prefill=prefill, sample_ms=sample_ms,
+                    added_gb=eng.added_gb, replays=main)
 
     def log_serving(label, s):
-        log(f"[{card}] {label} bf16 engine: {s['produced']} tokens in "
+        d = s["decode"]
+        log(f"[{card}] {label} bf16 engine (graphed): {s['produced']} tokens in "
             f"{s['serve_s']:.3f} s = {s['produced'] / s['serve_s']:.1f} tok/s "
-            f"over 16 requests; median tick at 8 active slots "
+            f"over 16 mixed requests; median tick at 8 active slots "
             f"{s['tick8_ms']:.3f} ms ({8e3 / s['tick8_ms']:.1f} tok/s), "
-            f"{s['n_full']} such ticks")
-        log(f"[{card}] {label} prefill ms per bucket: "
-            + ", ".join(f"{b}: {ms:.3f}" for b, ms in s["prefill_ms"].items()))
-        log(f"[{card}] {label} decode forward at 8 slots {s['decode_ms']:.3f} "
-            "ms; host sampling ms per slot: "
+            f"{s['n_full']} such ticks; all greedy {s['greedy_tick8_ms']:.3f} "
+            f"ms ({8e3 / s['greedy_tick8_ms']:.1f} tok/s), "
+            f"{s['n_full_greedy']} such ticks")
+        log(f"[{card}] {label} decode at 8 slots: graph replay {d['replay_ms']:.3f} "
+            f"ms device, program call {d['call_ms']:.3f} ms; eager "
+            f"forward_cached (f32 parameters) {d['eager_ms']:.3f} ms, its device "
+            f"time {d['eager_device_ms']:.3f} ms (idle "
+            f"{1 - d['eager_device_ms'] / d['eager_ms']:.1%}); the graphed "
+            f"tick's device share {d['replay_ms'] / s['tick8_ms']:.1%} (mixed), "
+            f"{d['replay_ms'] / s['greedy_tick8_ms']:.1%} (greedy)")
+        log(f"[{card}] {label} prefill ms per bucket (graph replay / program "
+            "call / eager forward_cached): " + ", ".join(
+                f"{b}: {p['replay_ms']:.3f} / {p['call_ms']:.3f} / "
+                f"{p['eager_ms']:.3f}" for b, p in s["prefill"].items()))
+        log(f"[{card}] {label} engine adds {s['added_gb'][0]:.3f} GB allocated "
+            f"({s['added_gb'][2]:.3f} weights cast once, {s['added_gb'][3]:.3f} "
+            f"caches), {s['added_gb'][1]:.3f} GB reserved; host sampling ms per "
+            "slot: "
             + ", ".join(f"{k} {v:.3f}" for k, v in s["sample_ms"].items()))
 
     opt_cfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=2, total_steps=20)
@@ -716,24 +905,46 @@ def main() -> int:
 
     # ------------------------------------------ 4. main path: serving
     engine_kw = dict(MODEL, max_batch_slots=8, prefill_buckets=PREFILL_BUCKETS)
-    # f32 engine: greedy tokens == argmax of the full forward through K1.
+    # f32 engine: its graphs against eager forward_cached, then greedy tokens
+    # == argmax of the full forward through K1.
     cfg = LLMConfig(dtype="float32", **engine_kw)
-    eng = DecodeEngine(cfg, params=lively(gpt2.init_params(
-        cfg.model_config(), torch.Generator().manual_seed(1), dev),
-        GPT2_LIVELY), device=dev)
+    params = lively(gpt2.init_params(cfg.model_config(),
+                                     torch.Generator().manual_seed(1), dev),
+                    GPT2_LIVELY)
+    eng = build_engine("GPT-2 f32 engine", cfg, params)
+    graph_against_eager("GPT-2 f32 engine", gpt2, eng)
     prompts = [eng.tokenizer.encode("The port serves GPT-2 on the card."),
-               eng.tokenizer.encode("Flash attention, hand-written for Hopper")]
-    greedy_matches_forward("f32 engine", gpt2, eng, prompts, 16)
+               eng.tokenizer.encode("Flash attention, hand-written for Hopper"),
+               eng.tokenizer.encode("la la la la la la la la")]
+    plain = greedy_matches_forward("f32 engine", gpt2, eng, prompts, 16)
     del eng
-    # bf16 engine: 16 mixed requests, 32 new tokens each.
+    # The same weights with prompt-lookup speculation (k=4): the decode_all
+    # graph verifies the drafts, and the greedy tokens equal the plain
+    # engine's.
+    eng = build_engine("GPT-2 f32 speculative engine (k=4)", LLMConfig(
+        dtype="float32", speculative_ngram_k=4, **engine_kw), params)
+    graph_against_eager("GPT-2 f32 speculative engine", gpt2, eng)
+    before = replays(eng)
+    spec, _, _ = serve_timed(
+        eng, [(p, SamplingParams(max_new_tokens=16)) for p in prompts])
+    spec_replays = {n: r - before[n] for n, r in replays(eng).items()}
+    log(f"speculative engine greedy {spec}; program replays {spec_replays}; "
+        f"drafts proposed {eng.stats['spec_proposed']}, accepted "
+        f"{eng.stats['spec_accepted']}")
+    check(spec == plain, f"speculative engine tokens {spec} != the plain "
+          f"engine's {plain}")
+    check(spec_replays["decode_all"] > 0, "decode_all was not replayed")
+    del eng, params
+    # bf16 engine: 16 mixed requests, 32 new tokens each, then all greedy.
     cfg = LLMConfig(dtype="bfloat16", **engine_kw)
-    eng = DecodeEngine(cfg, params=lively(gpt2.init_params(
+    eng = build_engine("GPT-2 bf16 engine", cfg, lively(gpt2.init_params(
         cfg.model_config(), torch.Generator().manual_seed(2), dev),
-        GPT2_LIVELY), device=dev)
-    serving = mixed_requests(eng, "bf16 engine")
+        GPT2_LIVELY))
+    graph_against_eager("GPT-2 bf16 engine", gpt2, eng)
+    serving = mixed_requests(eng, gpt2, "GPT-2 bf16 engine")
     main_launches = attn.launches["flash_fwd"]
     del eng
-    torch.cuda.empty_cache()
+    release()
     phase_done(4)
 
     # ------------------------------------------- 5. main path: training
@@ -914,17 +1125,20 @@ def main() -> int:
     llama_per_forward = full_forward_checks(
         "llama-1b", llama, lparams,
         dataclasses.replace(lcfg, dtype=torch.bfloat16, attention_impl="flash"))
-    eng = DecodeEngine(cfg, params=lparams, device=dev)
+    eng = build_engine("llama-1b f32 engine", cfg, lparams)
+    graph_against_eager("llama-1b f32 engine", llama, eng)
     prompts_l = [eng.tokenizer.encode("The port serves llama on the card."),
                  eng.tokenizer.encode("Grouped-query attention, four to one")]
     greedy_matches_forward("llama-1b f32 engine", llama, eng, prompts_l, 16)
     del eng
-    eng = DecodeEngine(LLMConfig(dtype="bfloat16", **llama_kw), params=lparams,
-                       device=dev)
-    llama_serving = mixed_requests(eng, "llama-1b bf16 engine")
+    release()
+    eng = build_engine("llama-1b bf16 engine",
+                       LLMConfig(dtype="bfloat16", **llama_kw), lparams)
+    graph_against_eager("llama-1b bf16 engine", llama, eng)
+    llama_serving = mixed_requests(eng, llama, "llama-1b bf16 engine")
     llama_k1_launches = attn.launches["flash_fwd"]
     del eng, lparams
-    torch.cuda.empty_cache()
+    release()
     log(f"[{card}] K1 launches on the llama serving path (phase 8): "
         f"{llama_k1_launches} ({llama_per_forward} a forward)")
     log_serving("llama-1b", llama_serving)
@@ -956,13 +1170,14 @@ def main() -> int:
     mcfg = cfg.model_config()
     check(mcfg.moe == MoEConfig(num_experts=8, top_k=2, activation="swiglu"),
           f"LLMConfig gave moe {mcfg.moe}")
-    eng = DecodeEngine(cfg, params=lively(llama.init_params(
-        mcfg, torch.Generator().manual_seed(5), dev), ("wq", "wk", "wv", "wo")),
-        device=dev)
+    eng = build_engine("MoE llama f32 engine", cfg, lively(llama.init_params(
+        mcfg, torch.Generator().manual_seed(5), dev), ("wq", "wk", "wv", "wo")))
     check(eng.model_config.moe.dropless, "the engine did not route dropless")
+    graph_against_eager("MoE llama f32 engine (dropless)", llama, eng)
     greedy_matches_forward("MoE llama f32 engine (dropless)", llama, eng,
                            prompts_l, 8)
     del eng
+    release()
     moe_train = dataclasses.replace(mcfg, attention_impl="flash")
     opt = opt_cfg.build()
     state = create_train_state(moe_train, opt, torch.Generator().manual_seed(6),
@@ -984,6 +1199,137 @@ def main() -> int:
     del state, opt
     torch.cuda.empty_cache()
     phase_done(11)
+
+    # ------------------------------- 12. main path: the OpenAI surface
+    # GPT-2-small width, f32, lively random weights with the rows of wte
+    # past the byte tokenizer's 258 ids zeroed: the tied head scores every
+    # such id 0, so the generations are bytes and the responses hold text.
+    attn.launches["flash_fwd"] = 0
+    srv_cfg = LLMConfig(dtype="float32", **engine_kw)
+    cfg_dict = srv_cfg.to_dict()
+    sparams = lively(gpt2.init_params(srv_cfg.model_config(),
+                                      torch.Generator().manual_seed(7), dev),
+                     GPT2_LIVELY)
+    with torch.no_grad():
+        sparams["wte"][258:].zero_()
+    srv = LLMServer(cfg_dict, params=sparams, device=dev)
+    check(all(p.graph is not None for p in programs(srv.engine).values()),
+          "LLMServer's engine runs uncaptured programs")
+    tok = srv.engine.tokenizer
+    prompt = "The OpenAI surface of the port, on the card: "
+    resp = srv.completions({"prompt": prompt, "max_tokens": 16, "logprobs": 2})
+    choice, usage = resp["choices"][0], resp["usage"]
+    lp, n = choice["logprobs"], usage["completion_tokens"]
+    expect = forward_argmax(gpt2, srv.engine, tok.encode(prompt), 16)
+    log(f"LLMServer completion {choice['text']!r}, tokens {lp['tokens']}")
+    check(n >= 1 and lp["tokens"] == expect[:n],
+          f"completion tokens {lp['tokens']} != K1 full-forward argmax {expect}")
+    check(resp["object"] == "text_completion" and choice["text"] == tok.decode(
+        lp["tokens"]) and usage["prompt_tokens"] == len(tok.encode(prompt))
+        and usage["total_tokens"] == usage["prompt_tokens"] + n,
+        f"completion envelope {resp}")
+    check(len(lp["token_logprobs"]) == n and len(lp["top_logprobs"]) == n
+          and all(len(d) == 2 for d in lp["top_logprobs"])
+          and all(math.isfinite(x) and x <= 0 for x in lp["token_logprobs"]),
+          f"logprobs block {lp}")
+    messages = [{"role": "system", "content": "Answer in bytes."},
+                {"role": "user", "content": "What runs on the card?"}]
+    chat = srv.chat_completions({"messages": messages, "max_tokens": 16,
+                                 "logprobs": 1})
+    chat_tokens = chat["choices"][0]["logprobs"]["tokens"]
+    expect = forward_argmax(gpt2, srv.engine,
+                            tok.encode(srv._chat_prompt(messages)), 16)
+    log(f"LLMServer chat {chat['choices'][0]['message']['content']!r}, "
+        f"tokens {chat_tokens}")
+    check(len(chat_tokens) >= 1 and chat_tokens == expect[:len(chat_tokens)],
+          f"chat tokens {chat_tokens} != K1 full-forward argmax {expect}")
+    check(chat["object"] == "chat.completion" and chat["choices"][0][
+        "message"]["content"] == tok.decode(chat_tokens), f"chat envelope {chat}")
+    payload = {"prompt": prompt, "max_tokens": 24}
+    lines = list(srv({"body": json.dumps({**payload, "stream": True}),
+                      "path": "/v1/completions"}))
+    streamed = "".join(json.loads(line[len("data: "):])["choices"][0]["text"]
+                       for line in lines[:-1])
+    whole = srv.completions(payload)["choices"][0]["text"]
+    log(f"LLMServer stream: {len(lines) - 1} chunks, joined {streamed!r}")
+    check(lines[-1] == "data: [DONE]\n\n" and streamed == whole and whole,
+          f"stream {streamed!r} != completion {whole!r}")
+
+    # Prefill/decode disaggregation: two more engines on the card, behind
+    # in-process handles; a seeded stochastic request equals the
+    # monolithic engine's.
+    def handle(target):
+        def method(name):
+            def remote(*args):
+                fut = Future()
+                fut.set_result(getattr(target, name)(*args))
+                return fut
+            return SimpleNamespace(remote=remote)
+        return SimpleNamespace(prefill=method("prefill"), decode=method("decode"))
+
+    pre = PrefillServer(cfg_dict, params=sparams, device=dev)
+    dec = DecodeServer(cfg_dict, params=sparams, device=dev)
+    seeded = {"prompt": prompt, "max_tokens": 16, "temperature": 0.8,
+              "top_p": 0.9, "seed": 5, "logprobs": 1}
+    split = PDIngress(cfg_dict, handle(pre), handle(dec))(seeded)
+    mono = srv.completions(seeded)
+    log(f"PDIngress seeded top-p {split['choices'][0]['text']!r}, tokens "
+        f"{split['choices'][0]['logprobs']['tokens']}")
+    check(split["disaggregated"] and split["choices"] == mono["choices"]
+          and split["usage"] == mono["usage"],
+          f"PDIngress {split} != monolithic {mono}")
+    pre.engine.shutdown()
+    dec.engine.shutdown()
+    del pre, dec
+    release()
+
+    # The batch stage over 16 prompts (its own engine, fresh weights from
+    # seed 0): continuous batching gives each row what it gives alone.
+    stage = _EngineStage(cfg_dict, dict(SamplingParams(max_new_tokens=16).__dict__),
+                         "prompt", "out", device=dev)
+    rows = [text[7 * i:7 * i + 12 + 5 * i] for i in range(16)]
+    t = time.perf_counter()
+    out = stage({"prompt": rows, "row": list(range(16))})
+    stage_s = time.perf_counter() - t
+    stage_eng = stage._engine()
+    alone = [tok.decode(stage_eng.generate(tok.encode(r), SamplingParams(
+        max_new_tokens=16))) for r in rows]
+    log(f"_EngineStage: 16 rows in {stage_s:.3f} s")
+    check(out["row"] == list(range(16)) and out["out"] == alone,
+          "the batch stage's rows differ from the same prompts alone")
+    stage_eng.shutdown()
+    _EngineStage._engine_cache.clear()
+    del stage, stage_eng
+    release()
+
+    # The requests' tokens/s of 16 concurrent completions through
+    # LLMServer (phase 4's mix: a third greedy, top-p, seeded top-k).
+    payloads = []
+    for i, n in enumerate(np.random.RandomState(0).randint(8, 201, size=16)):
+        p = {"prompt": text[i:i + int(n)], "max_tokens": 32}
+        if i % 3 == 1:
+            p.update(temperature=0.8, top_p=0.9)
+        elif i % 3 == 2:
+            p.update(temperature=1.0, top_k=50, seed=i)
+        payloads.append(p)
+    with ThreadPoolExecutor(len(payloads)) as pool:
+        t = time.perf_counter()
+        answers = list(pool.map(srv, payloads))
+        concurrent_s = time.perf_counter() - t
+    concurrent_tokens = sum(a["usage"]["completion_tokens"] for a in answers)
+    check(all(a["usage"]["completion_tokens"] >= 1 for a in answers),
+          "a concurrent completion returned nothing")
+    srv.engine.shutdown()
+    serving_launches = attn.launches["flash_fwd"]
+    del srv, sparams
+    release()
+    log(f"[{card}] LLMServer (f32, graphed): 16 concurrent completions, "
+        f"{concurrent_tokens} tokens in {concurrent_s:.3f} s = "
+        f"{concurrent_tokens / concurrent_s:.1f} tok/s")
+    log(f"[{card}] K1 launches on the OpenAI surface's path (phase 12, the "
+        f"full-forward yardstick): {serving_launches}")
+    check(serving_launches > 0, "K1 was not launched on the serving path")
+    phase_done(12)
 
     # ------------------------------------------------------ the kernels line
     def kernel_row(name, line, src, launches, err, ms, plain, bound, lib_ms):
@@ -1007,11 +1353,13 @@ def main() -> int:
 
     # The top-level numbers are GPT-2 small's shapes (as before); "llama1b"
     # holds the same keys at llama-1b's shapes; "launches" is the sum of
-    # both main paths, "launches_by_path" each.
+    # the main paths, "launches_by_path" each.
     row = kernel_row("flash_fwd", 73, "flash_fwd.cu",
-                     main_launches + llama_k1_launches, case_err("entry"),
-                     k1["ms"], k1["plain_ms"], k1["bound"], k1["sdpa_ms"])
-    row["launches_by_path"] = {"gpt2": main_launches, "llama": llama_k1_launches}
+                     main_launches + llama_k1_launches + serving_launches,
+                     case_err("entry"), k1["ms"], k1["plain_ms"], k1["bound"],
+                     k1["sdpa_ms"])
+    row["launches_by_path"] = {"gpt2": main_launches, "llama": llama_k1_launches,
+                               "serving": serving_launches}
     row["llama1b"] = kernel_row(
         "flash_fwd", 73, "flash_fwd.cu", llama_k1_launches,
         case_err("llama1b-serve"), k1_llama["ms"], k1_llama["plain_ms"],

@@ -3,18 +3,28 @@
 Counterpart of ``ray_tpu/llm/engine.py``, in PyTorch:
 
 - The KV cache is one static [L, B, S, H, D] pair of tensors (H: the kv
-  heads for a GQA llama); every decode tick is one forward over ALL
-  slots, not a per-request loop.
+  heads for a GQA llama); every decode tick is one replay of the decode
+  program over ALL slots, not a per-request loop.
 - Prompts prefill at bucketed lengths into a batch=1 cache, then an insert
   copies it into the slot's row: requests join and leave the running batch
   without changing any shape (the "continuous" part).
 - Sampling happens host-side on the [B, V] logits of the tick (greedy /
   temperature / top-k / top-p / min-p), copied as is from the JAX engine.
 
+Where the JAX engine jits ``prefill``, ``decode`` and the speculative
+``decode_all``, this one captures each as a CUDA graph when it is built
+(``llm/programs.py``): one decode program, one prefill program per bucket
+and, with speculation, one ``decode_all`` program. They run on a run-time
+copy of the weights in which every matrix the forward casts to the
+activation dtype at each use is cast once (same values); the norms' gains
+and the MoE router stay f32, as the forward uses them. On the CPU the same
+programs run eagerly on the same static buffers.
+
 Where the JAX engine leans on immutable arrays, this one copies: the
-forward writes K/V into its cache in place, so a prefix-cache entry is
-cloned before a partial hit prefills from it, and the batch cache is
-updated in place by insert and decode (what JAX did by donation).
+forward writes K/V into its cache in place, so every prefill runs in one
+static slot cache (zeroed, or loaded with a prefix-cache entry for a
+partial hit) whose result is cloned out, and the batch cache is updated in
+place by insert and decode (what JAX did by donation).
 """
 from __future__ import annotations
 
@@ -32,6 +42,40 @@ import torch
 from ray_tpu_torch._private.backoff import Backoff
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.llm.config import LLMConfig, load_tokenizer
+from ray_tpu_torch.llm.programs import Program
+
+# Leaves the forward casts to the activation dtype at every use (matrices,
+# their biases, the embeddings and the head): the engine casts them once.
+# Norm gains and biases and the MoE router are used in f32 and stay so.
+_CAST_AT_USE = frozenset({
+    "wte", "wpe", "lm_head",
+    "qkv_w", "qkv_b", "proj_w", "proj_b", "fc_w", "fc_b", "out_w", "out_b",
+    "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+    "expert_fc", "expert_gate", "expert_out",
+})
+
+
+def precast_params(params, dtype: torch.dtype) -> Dict[str, Any]:
+    """A nested dict of ``params``'s leaves (a model module or a dict,
+    indexed as the forward indexes it) in which each leaf of
+    ``_CAST_AT_USE`` is cast to ``dtype``; the rest share their storage.
+    The forward's own casts of those leaves are then no-ops, so its
+    results are unchanged."""
+    if isinstance(params, (dict, torch.nn.ParameterDict)):
+        items = list(params.items())
+    else:
+        items = [*params.named_parameters(recurse=False),
+                 *params.named_children()]
+    out = {}
+    with torch.no_grad():
+        for name, leaf in items:
+            if not isinstance(leaf, torch.Tensor):
+                out[name] = precast_params(leaf, dtype)
+            elif name in _CAST_AT_USE:
+                out[name] = leaf.detach().to(dtype)
+            else:
+                out[name] = leaf.detach()
+    return out
 
 
 @dataclass
@@ -120,43 +164,49 @@ class DecodeEngine:
         B, S = config.max_batch_slots, config.max_seq_len
         cfg = self.model_config
         dev = self.device
-        self._cache = model.init_kv_cache(cfg, B, S, device=dev)
+        run = self._run_params = precast_params(params, cfg.dtype)
+        cache = self._cache = model.init_kv_cache(cfg, B, S, device=dev)
+        slot_cache = self._slot_cache = model.init_kv_cache(
+            cfg, 1, S, device=dev
+        )
         self._rng = np.random.RandomState(seed)
 
-        # Device work runs on the engine's loop thread as well as the
-        # caller's; no_grad is per thread, so each function carries it.
-        @torch.no_grad()
-        def prefill(params, tokens, cache1, start):
+        # Each program's inputs are static buffers; the caches are written
+        # in place at fixed addresses. Warm-up and capture run at position
+        # 0: decode's write lands at position 0 of batch rows that the next
+        # insert overwrites whole, prefill's in the slot cache, which every
+        # full prefill zeroes first.
+        def prefill(tokens, start):
             # start > 0 = continuation from a cached prefix: only the
-            # prompt's tail runs through the model. Writes cache1 in place.
-            return model.forward_cached(params, tokens, cache1, start, cfg)
+            # prompt's tail runs through the model.
+            return model.forward_cached(run, tokens, slot_cache, start, cfg)
 
-        @torch.no_grad()
-        def insert(batch_cache, slot_cache, b):
-            for name, c in batch_cache.items():
-                c[:, b:b + 1].copy_(slot_cache[name])
-            return batch_cache
+        def decode(tokens, lens):
+            logits, _ = model.forward_cached(run, tokens, cache, lens, cfg)
+            return logits[:, -1]
 
-        @torch.no_grad()
-        def decode(params, tokens, cache, lens):
-            logits, cache = model.forward_cached(params, tokens, cache, lens, cfg)
-            return logits[:, -1], cache
-
-        @torch.no_grad()
-        def decode_all(params, tokens, cache, lens):
+        def decode_all(tokens, lens):
             # speculation verify: logits at EVERY position (position j's
             # row predicts the token after input j)
-            return model.forward_cached(params, tokens, cache, lens, cfg)
+            return model.forward_cached(run, tokens, cache, lens, cfg)[0]
 
-        self._prefill = prefill
-        self._insert = insert
-        self._decode = decode
+        def inputs(rows, width, pos_name):
+            return {"tokens": torch.zeros((rows, width), dtype=torch.long,
+                                          device=dev),
+                    pos_name: torch.zeros((rows,), dtype=torch.long,
+                                          device=dev)}
+
         self._spec_k = max(
             0, int(getattr(config, "speculative_ngram_k", 0) or 0)
         )  # negatives = disabled, never a half-armed dispatch path
-        self._decode_spec = decode_all if self._spec_k > 0 else None
-        self._empty_slot_cache = lambda: model.init_kv_cache(
-            cfg, 1, S, device=dev
+        self._prefill = {
+            b: Program(prefill, inputs(1, b, "start"))
+            for b in config.prefill_buckets
+        }
+        self._decode = Program(decode, inputs(B, 1, "lens"))
+        self._decode_spec = (
+            Program(decode_all, inputs(B, 1 + self._spec_k, "lens"))
+            if self._spec_k > 0 else None
         )
 
         self._slots = [_Slot() for _ in range(B)]
@@ -166,8 +216,9 @@ class DecodeEngine:
         self._lock = threading.Lock()
         # Automatic prefix cache: prompt-token tuple -> {"cache": slot cache
         # (never written after it is stored: a partial hit prefills from a
-        # clone), "logits_row": final-position logits for per-request
-        # sampling}. LRU-bounded; entries are whole completed prefills.
+        # copy of it in the static slot cache), "logits_row": final-position
+        # logits for per-request sampling}. LRU-bounded; entries are whole
+        # completed prefills.
         from collections import OrderedDict
 
         self._prefix_cache: "OrderedDict[tuple, dict]" = OrderedDict()
@@ -177,8 +228,12 @@ class DecodeEngine:
             "spec_proposed": 0, "spec_accepted": 0,
         }
 
-    def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    @torch.no_grad()
+    def _insert(self, slot_cache, b: int) -> None:
+        """Copy a batch-1 cache into row ``b`` of the batch cache (two
+        in-place copies: a program would replay the same two launches)."""
+        for name, c in self._cache.items():
+            c[:, b:b + 1].copy_(slot_cache[name])
 
     # ------------------------------------------------------------- sampling
 
@@ -343,13 +398,14 @@ class DecodeEngine:
             Tpad = self._bucket(len(rem))
             toks = np.zeros((1, Tpad), np.int64)
             toks[0, : len(rem)] = rem
-            # The forward writes its cache in place and the entry's cache is
-            # shared by every entry of that prefill (and may be in use by
-            # an exact hit): prefill into a clone, never the entry itself.
-            cache1 = {k: v.clone() for k, v in entry["cache"].items()}
-            logits, cache1 = self._prefill(
-                self.params, self._tensor(toks), cache1,
-                self._tensor(np.full((1,), matched, np.int64)),
+            # The entry's cache is shared by every entry of that prefill
+            # (and may be in use by an exact hit): the program runs in the
+            # static slot cache, loaded with a copy of it.
+            with torch.no_grad():
+                for k, v in self._slot_cache.items():
+                    v.copy_(entry["cache"][k])
+            logits, cache1 = self._prefill[Tpad](
+                tokens=toks, start=np.full((1,), matched, np.int64)
             )
             logits_np = logits.cpu().numpy()[0]
             row = logits_np[len(rem) - 1]
@@ -358,9 +414,12 @@ class DecodeEngine:
             Tpad = self._bucket(n)
             toks = np.zeros((1, Tpad), np.int64)
             toks[0, :n] = prompt_ids
-            logits, cache1 = self._prefill(
-                self.params, self._tensor(toks), self._empty_slot_cache(),
-                self._tensor(np.zeros((1,), np.int64)),
+            # a fresh cache, as JAX's init_kv_cache is
+            with torch.no_grad():
+                for v in self._slot_cache.values():
+                    v.zero_()
+            logits, cache1 = self._prefill[Tpad](
+                tokens=toks, start=np.zeros((1,), np.int64)
             )
             logits_np = logits.cpu().numpy()[0]
             row = logits_np[n - 1]
@@ -370,7 +429,7 @@ class DecodeEngine:
 
     def _activate_slot_locked(self, b, cache1, first, prompt_len, params,
                               fut, prompt_ids=(), first_lp=None, rng=None):
-        self._cache = self._insert(self._cache, cache1, b)
+        self._insert(cache1, b)
         slot = self._slots[b]
         slot.active = True
         slot.token_ids = [first]
@@ -551,10 +610,7 @@ class DecodeEngine:
             if i in drafts:
                 d = drafts[i]
                 toks[i, 1:1 + len(d)] = d
-        logits, self._cache = self._decode_spec(
-            self.params, self._tensor(toks), self._cache, self._tensor(lens)
-        )
-        logits = logits.cpu().numpy()
+        logits = self._decode_spec(tokens=toks, lens=lens).cpu().numpy()
         for i in active:
             slot = self._slots[i]
             draft = drafts.get(i, [])
@@ -599,10 +655,7 @@ class DecodeEngine:
             lens[i] = self._slots[i].length
         # Inactive slots decode too, at position 0: their row's write lands
         # at position 0 of a row that the next insert overwrites whole.
-        logits, self._cache = self._decode(
-            self.params, self._tensor(toks), self._cache, self._tensor(lens)
-        )
-        logits = logits.cpu().numpy()
+        logits = self._decode(tokens=toks, lens=lens).cpu().numpy()
         for i in active:
             slot = self._slots[i]
             nxt, lp = self._sample(

@@ -239,8 +239,10 @@ def _rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     casts them."""
     D = x.shape[-1]
     i = torch.arange(0, D // 2, dtype=torch.float32, device=x.device)
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), -i / (D // 2))
+    # a fill, not a host-to-device copy: the engine captures this forward
+    # into a CUDA graph, where a synchronising copy is not allowed
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), -i / (D // 2))
     angles = pos[..., None].to(torch.float32) * freqs          # [B, T, D/2]
     cos = torch.cos(angles)[:, :, None, :].to(x.dtype)         # [B, T, 1, D/2]
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)

@@ -24,7 +24,8 @@ from ray_tpu.llm import LLMConfig as JaxLLMConfig
 from ray_tpu.llm import SamplingParams as JaxSamplingParams
 from ray_tpu.models import gpt2 as jgpt2
 from ray_tpu_torch.llm import DecodeEngine, LLMConfig, SamplingParams
-from ray_tpu_torch.models import convert
+from ray_tpu_torch.llm.programs import Program
+from ray_tpu_torch.models import convert, module_for
 from ray_tpu_torch.models import gpt2 as tgpt2
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -235,6 +236,114 @@ def test_prompt_too_long_rejected(np_params):
         eng.shutdown()
 
 
+def test_static_slot_cache_aliasing_matches_jax(jax_params, np_params):
+    """Every prefill runs in the engine's one static slot cache and its
+    result is cloned out: prompt A, then B through the same slot cache,
+    then an exact and a partial prefix-cache hit on A give the JAX
+    engine's tokens, and A's stored entry is untouched by B."""
+    a = [5, 9, 17, 33, 2, 7, 11, 13, 3, 4, 6, 8, 10, 12, 14, 15]   # bucket 16
+    b = [40, 41, 42]
+    prompts = [a, b, a, a + [20, 21, 22]]
+    p = dict(max_new_tokens=6)
+    jeng = JaxEngine(JaxLLMConfig(**_SMALL), params=jax_params)
+    try:
+        expect = [list(jeng.generate(pr, JaxSamplingParams(**p)))
+                  for pr in prompts]
+    finally:
+        jeng.shutdown()
+    eng = _engine(np_params, prefix_cache_size=4)
+    try:
+        got = [list(eng.generate(prompts[0], SamplingParams(**p)))]
+        entry = eng._prefix_cache[tuple(a)]["cache"]
+        snap = {k: v.clone() for k, v in entry.items()}
+        got += [list(eng.generate(pr, SamplingParams(**p)))
+                for pr in prompts[1:]]
+        assert all(torch.equal(entry[k], snap[k]) for k in snap)
+        assert all(entry[k].data_ptr() != eng._slot_cache[k].data_ptr()
+                   for k in snap)
+    finally:
+        eng.shutdown()
+    assert eng.stats["prefix_hits"] == 1
+    assert eng.stats["prefix_partial_hits"] == 1
+    assert got == expect
+
+
+def test_program_outputs_survive_the_next_call(np_params):
+    """A program returns copies: the first call's outputs (and a buffer it
+    returns, such as the slot cache) keep their values through a second
+    call. On the CPU nothing is captured."""
+    prog = Program(lambda x, y: {"sum": x + y, "x": x},
+                   {"x": torch.zeros(3), "y": torch.zeros(3)})
+    first = prog(x=np.ones(3, np.float32), y=np.full(3, 2.0, np.float32))
+    second = prog(x=torch.full((3,), 5.0), y=np.zeros(3, np.float32))
+    assert torch.equal(first["sum"], torch.full((3,), 3.0))
+    assert torch.equal(first["x"], torch.ones(3))
+    assert torch.equal(second["sum"], torch.full((3,), 5.0))
+    assert prog.graph is None and prog.replays == 0
+
+    eng = _engine(np_params)
+    prefill = eng._prefill[16]
+    toks = np.zeros((1, 16), np.int64)
+    start = np.zeros((1,), np.int64)
+    toks[0, :4] = [5, 9, 17, 33]
+    logits1, cache1 = prefill(tokens=toks, start=start)
+    snap = {k: v.clone() for k, v in cache1.items()}
+    toks[0, :4] = [40, 41, 42, 43]
+    logits2, cache2 = prefill(tokens=toks, start=start)
+    assert all(torch.equal(cache1[k], snap[k]) for k in snap)
+    assert not torch.equal(cache1["k"], cache2["k"])
+    assert not torch.equal(logits1, logits2)
+
+
+_TINY = dict(vocab_size=128, max_seq_len=64, num_layers=2, num_heads=4,
+             embed_dim=64, dtype="bfloat16", max_batch_slots=2,
+             prefill_buckets=(16,))
+
+
+@pytest.mark.parametrize("family", ["gpt2", "llama", "moe-llama"])
+def test_precast_weights_give_bitwise_equal_bf16_logits(family):
+    """The engine's run-time weights (matrices cast to bf16 once) give
+    bf16 logits and caches torch.equal to forward_cached on the f32
+    parameters, which casts at every use; norms and the router stay f32."""
+    over = {"gpt2": {}, "llama": dict(model_family="llama", num_kv_heads=2),
+            "moe-llama": dict(model_family="llama", num_kv_heads=2,
+                              moe_num_experts=4)}[family]
+    config = LLMConfig(**{**_TINY, **over})
+    mod = module_for(config.model_config())
+    g = torch.Generator().manual_seed(0)
+    params = mod.init_params(config.model_config(), g, "cpu")
+    with torch.no_grad():   # gains and biases off their exact 1s and 0s
+        for w in params.parameters():
+            w.add_(0.05 * torch.randn(w.shape, generator=g))
+    eng = DecodeEngine(config, params=params, device="cpu")
+    cfg = eng.model_config
+    run = eng._run_params
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + k + ".")
+            else:
+                yield prefix + k, k, v
+
+    used_in_f32 = {"ln1_g", "ln1_b", "ln2_g", "ln2_b", "ln_f_g", "ln_f_b",
+                   "attn_norm", "mlp_norm", "norm_f", "router_w"}
+    for path, name, leaf in leaves(run):
+        want = torch.float32 if name in used_in_f32 else torch.bfloat16
+        assert leaf.dtype == want, path
+    assert ("router_w" in run["blocks"].get("moe", {})) == (family == "moe-llama")
+    toks = torch.randint(2, 128, (2, 8), generator=g)
+    caches = [mod.init_kv_cache(cfg, 2, 64, device="cpu") for _ in range(2)]
+    with torch.no_grad():
+        for tokens, start in ((toks, torch.tensor([0, 3])),
+                              (toks[:, :1], torch.tensor([8, 11]))):
+            la, _ = mod.forward_cached(run, tokens, caches[0], start, cfg)
+            lb, _ = mod.forward_cached(eng.params, tokens, caches[1], start,
+                                       cfg)
+            assert la.dtype == torch.float32 and torch.equal(la, lb)
+            assert all(torch.equal(caches[0][k], caches[1][k]) for k in "kv")
+
+
 _PORT_MODULES = [
     "ray_tpu_torch", "ray_tpu_torch._private.backoff",
     "ray_tpu_torch._private.device", "ray_tpu_torch.ops.attention",
@@ -245,6 +354,8 @@ _PORT_MODULES = [
     "ray_tpu_torch.train", "ray_tpu_torch.train.step",
     "ray_tpu_torch.models.llama", "ray_tpu_torch.models.common",
     "ray_tpu_torch.parallel", "ray_tpu_torch.parallel.moe",
+    "ray_tpu_torch.llm.programs", "ray_tpu_torch.llm.serving",
+    "ray_tpu_torch.llm.serving_patterns", "ray_tpu_torch.llm.batch",
 ]
 
 
