@@ -5,8 +5,9 @@
 
 Phases, in order; any failure exits non-zero:
 
-1. Card and toolchain: the card's name and power limit, torch and CUDA
-   versions; TF32 off; every kernel built from ``ray_tpu_torch/ops/csrc``
+1. Card and toolchain: the card's name and power limit, torch, CUDA and
+   Triton versions (Inductor, which compiles the train and eval steps,
+   generates Triton; without it those steps raise); TF32 off; every kernel built from ``ray_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, all started together), with no register
    spills in ptxas's report, and the SASS of every wgmma kernel instance
    (K1/K2's bf16 forward, K3's and K4's bf16 bodies) holding ``HGMMA`` and
@@ -35,14 +36,34 @@ Phases, in order; any failure exits non-zero:
    prompts all greedy: ms per tick at 8 slots, the decode replay's device
    ms, prefill ms per bucket and the memory the engine adds, beside eager
    ``forward_cached`` (host ms, and device ms from a graph of it).
-5. The training path: GPT-2 small at B=32, T=1024, bf16 activations over
-   f32 parameters, remat "dots", 12 steps of ``make_train_step`` on one
-   seeded batch: finite losses, the first near ln(V), a falling loss, and
-   per step 12 launches each of K2, K3 and K4 and none of K1; then one
-   step under remat "full", which re-runs K2 in the backward (24).
+5. The training path: GPT-2 small (L=12) at B=32, T=1024, bf16
+   activations over f32 parameters, remat "dots", 12 steps of
+   ``make_train_step`` on one seeded batch, compiled (the default on the
+   card: the loss and the update as two Inductor programs, K2-K4 inside
+   as custom ops, each block one nested compile region that every layer
+   reuses): finite losses, the first near ln(V), a falling loss,
+   per step L launches each of K2, K3 and K4 and none of K1, two programs
+   compiled at step 0 and none after it (steps 1.. run under Dynamo's
+   error_on_recompile); then 6 steps of the eager step (``backend=None``)
+   on the same state, timed beside it; then two compiled steps under
+   remat "full", which re-runs K2 in the backward (2L); then the compiled
+   eval step, L K1 launches a call, its loss within 1e-2 of the eager
+   eval step's.
 6. Training parity on the card: f32, GPT-2-small width at depth 2, B=2,
-   T=256, 3 steps through the kernels against the plain (flash_interpret)
-   path: loss and grad_norm per step within 2e-4 relative.
+   T=256, 3 compiled steps through the kernels against 3 eager steps on
+   the plain (flash_interpret) path: loss and grad_norm per step, and the
+   eval loss after them (compiled through K1, eager plain), within 2e-4
+   relative. Then one more step from two copies of the compiled state,
+   compiled and eager through the same kernels: every exp_avg and
+   exp_avg_sq leaf within 2e-4 and 4e-4 of its largest element, every
+   parameter element within the step error that this exp_avg error can
+   cause through Adam's m_hat / sqrt(v_hat) (up to 2 lr where the
+   gradient is near its rounding noise). Then the
+   compiled update (Inductor's program of ``clip_adamw_``) against the
+   eager one on copies of the compiled state, at the peak lr with
+   clipping on: every parameter, moment and step within a few f32
+   roundings (1e-6 of the leaf's largest element plus 1e-5 lr; moments
+   1e-5).
 7. Kernel numbers: K1 at the serving entry shape and K2-K4 at the training
    shape, then K1 at llama-1b's serving shape and K2-K4 at its training
    shape, beside their bounds, plain versions and
@@ -56,18 +77,25 @@ Phases, in order; any failure exits non-zero:
    ``forward_cached`` as in phase 4; the f32 engine's greedy tokens equal
    argmax over the full forward through K1; the bf16 engine answers phase
    4's requests, with phase 4's numbers.
-9. Llama training: the ``llama-1b`` preset (rope_theta 500000) at B=8,
-   T=2048, bf16 over f32 parameters, remat "dots", 12 steps: finite
-   losses, the first within 0.5 of ln(32000), a falling loss, per step 16
-   launches each of K2, K3 and K4 and none of K1; ms per step, tokens/s,
-   MFU, peak memory.
+9. Llama training: the ``llama-1b`` preset (L=16, rope_theta 500000), at
+   B=8, T=2048, bf16 over f32 parameters, remat
+   "dots", 12 compiled steps with phase 5's checks: finite losses, the
+   first within 0.5 of ln(32000), a falling loss, per step L launches
+   each of K2, K3 and K4 and none of K1, no recompile; then 6 eager
+   steps; ms per step, tokens/s, MFU, peak memory and compile seconds of
+   both.
 10. Llama training parity: f32, llama-1b width at depth 2, B=2, T=256, 3
-    steps through the kernels against the plain path, within 2e-4.
+    compiled steps through the kernels against the eager plain path, and
+    the eval loss after them, within 2e-4; the leaves and the compiled
+    update as in phase 6.
 11. MoE: a llama of 8 SwiGLU experts, top-2, at llama-1b width and depth
     2, in f32: the graphed engine (dropless routing) against eager
     ``forward_cached``, its greedy tokens equal to argmax over the full
-    forward through K1; one capacity-routed train step through K2-K4 gives
-    a finite loss and a positive aux loss.
+    forward through K1; three compiled, capacity-routed train steps with
+    router jitter 0.01 through K2-K4 (the last two at a nonzero lr) give
+    finite losses, a positive aux loss, no recompile, and equal three
+    eager steps within 2e-4, their leaves and the compiled update as in
+    phase 6.
 12. The OpenAI surface at GPT-2-small width, f32, on the card:
     ``LLMServer(device="cuda")`` completions (with a logprobs block) and
     chat whose tokens equal argmax over the full forward through K1; a
@@ -81,13 +109,15 @@ Launch counts are set to 0 just before each main path and read just
 after it: K1's before phase 3 and after phase 4 (GPT-2 serving), before
 and after phase 8 (llama serving) and phase 12 (the OpenAI surface, where
 K1 runs the full-forward yardstick); K2-K4's before and after the 12 steps
-of phase 5 (GPT-2) and of phase 9 (llama). The engines' programs count
+of phase 5 (GPT-2) and of phase 9 (llama); K1's before and after the two
+calls of phase 5's compiled eval step. The engines' programs count
 their graph replays; each must replay on its main path. The last lines are the card, the
 ``kernels`` JSON line and the result line. It imports nothing of JAX and
 nothing of ``ray_tpu``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import json
@@ -112,6 +142,8 @@ PREFILL_BUCKETS = (64, 128, 256)
 # The JAX package's training bench shape (bench.py:103): B=32, T=1024.
 TRAIN_BATCH = (32, 1024)
 TRAIN_STEPS = 12
+# Steps of the eager step (backend=None), timed beside the compiled one.
+EAGER_STEPS = 6
 
 # llama-1b (ray_tpu/models/llama.py LLAMA_1B) at published widths: served
 # as LLMConfig(model_family="llama") builds it (rope_theta and mlp_dim at
@@ -356,6 +388,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    # Inductor's and Triton's compile caches inside the checkout (gitignored)
+    for var, leaf in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                      ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(HERE, ".compile_cache", leaf))
 
     import numpy as np
     import torch.nn.functional as F
@@ -380,8 +416,10 @@ def main() -> int:
     from ray_tpu_torch.train import (
         OptimizerConfig,
         create_train_state,
+        make_eval_step,
         make_train_step,
     )
+    from ray_tpu_torch.train import step as step_mod
 
     dev = torch.device(DEVICE)
     t_start = time.perf_counter()
@@ -395,6 +433,10 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}")
+    # the compiled train and eval steps generate their fused kernels with
+    # Triton (Inductor); without it they raise, and nothing falls back
+    import triton
+    log(f"triton {triton.__version__}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -821,10 +863,35 @@ def main() -> int:
 
     opt_cfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=2, total_steps=20)
 
+    graphs = torch._dynamo.utils.counters["stats"]
+
+    def timed_steps(step_fn, state, batch, n):
+        """n steps of ``step_fn``: per-step seconds (ending in a
+        synchronise), losses, norms and kernel launches. Every step after
+        the first runs with Dynamo's error_on_recompile: a compiled step
+        that compiles again fails the run."""
+        losses, norms, step_s, per_step = [], [], [], []
+        for i in range(n):
+            before = dict(attn.launches)
+            t = time.perf_counter()
+            with torch._dynamo.config.patch(error_on_recompile=i > 0):
+                state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            per_step.append({k: attn.launches[k] - before[k] for k in attn.launches})
+        return state, dict(losses=losses, norms=norms, step_s=step_s,
+                           per_step=per_step)
+
     def train_steps(label, cfg, B, T):
-        """TRAIN_STEPS steps of make_train_step on one seeded batch, K2-K4's
-        counts set to 0 just before and read just after; the checks of
-        phase 5. Returns (state, batch, numbers)."""
+        """TRAIN_STEPS steps of the compiled make_train_step (the default on
+        the card) on one seeded batch, K2-K4's counts set to 0 just before
+        and read just after; the checks of phase 5: finite, the first loss
+        near ln V, a falling loss, L launches each of K2-K4 a step, no
+        program compiled after the first step. Then EAGER_STEPS of the
+        eager step (backend=None) on the same state, timed beside it.
+        Returns (state, batch, opt, numbers)."""
         L, V = cfg.num_layers, cfg.vocab_size
         opt = opt_cfg.build()
         state = create_train_state(cfg, opt, torch.Generator().manual_seed(0),
@@ -836,23 +903,25 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         for name in ("flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"):
             attn.launches[name] = 0
-        losses, norms, step_s, per_step = [], [], [], []
-        for i in range(TRAIN_STEPS):
-            before = dict(attn.launches)
-            t = time.perf_counter()
-            state, metrics = train_step(state, batch)
-            losses.append(float(metrics["loss"]))
-            norms.append(float(metrics["grad_norm"]))
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t)
-            per_step.append({n: attn.launches[n] - before[n] for n in attn.launches})
+        graphs_before = graphs["unique_graphs"]
+        state, tr = timed_steps(train_step, state, batch, 1)
+        graphs_first = graphs["unique_graphs"] - graphs_before
+        state, rest = timed_steps(train_step, state, batch, TRAIN_STEPS - 1)
+        recompiled = graphs["unique_graphs"] - graphs_before - graphs_first
+        for k in tr:
+            tr[k] += rest[k]
         launches = dict(attn.launches)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        log(f"train {label} B={B} T={T} bf16/f32 remat {cfg.remat_policy}: "
-            "losses " + " ".join(f"{x:.4f}" for x in losses))
+        losses, norms, per_step = tr["losses"], tr["norms"], tr["per_step"]
+        log(f"train {label} B={B} T={T} bf16/f32 remat {cfg.remat_policy}, "
+            "compiled: losses " + " ".join(f"{x:.4f}" for x in losses))
         log(f"train {label} grad norms " + " ".join(f"{x:.4f}" for x in norms))
         log(f"train {label} launches per step {per_step[0]} ({TRAIN_STEPS} "
-            f"steps: {launches})")
+            f"steps: {launches}); programs compiled at step 0: "
+            f"{graphs_first}, after it: {recompiled}")
+        check(graphs_first == 2 and recompiled == 0,
+              f"{label}: {graphs_first} programs compiled at step 0 (want the "
+              f"loss and the update), {recompiled} after it (want 0)")
         check(all(math.isfinite(x) for x in losses + norms),
               f"{label}: non-finite loss or norm")
         check(abs(losses[0] - math.log(V)) < 0.5,
@@ -865,34 +934,153 @@ def main() -> int:
         for i, counts in enumerate(per_step):
             check(counts == want, f"{label} train step {i} launches {counts}, "
                   f"want {want}")
+        # the eager step on the same state, its own peak
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, eager = timed_steps(make_train_step(cfg, opt, backend=None),
+                                   state, batch, EAGER_STEPS)
+        eager["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"train {label} eager steps: losses "
+            + " ".join(f"{x:.4f}" for x in eager["losses"]))
+        check(all(math.isfinite(x) for x in eager["losses"] + eager["norms"])
+              and all(c == want for c in eager["per_step"]),
+              f"{label} eager steps: losses {eager['losses']}, launches "
+              f"{eager['per_step']}")
         return state, batch, opt, dict(launches=launches, peak_gb=peak_gb,
-                                       step_s=step_s, want=want)
+                                       step_s=tr["step_s"], want=want,
+                                       eager=eager)
+
+    def check_leaves(label, state, compiled_fn, eager_fn, batch, lr):
+        """One more step from two copies of ``state``, one through the
+        compiled step, one through the eager step on the same kernels (the
+        compiled program is what differs), at ``lr``; then the Adam moments
+        and parameters, leaf by leaf: exp_avg within 2e-4 and exp_avg_sq
+        within 4e-4 of the leaf's largest element (the gradients' 2e-4,
+        squared in v). The update moves a parameter by lr * m_hat /
+        (sqrt(v_hat) + eps), so a gradient error dm moves it by about
+        1.25 dm / sqrt(v) times lr at step 4 (m's bias correction against
+        v's), plus v's share: each element within lr * min(2,
+        4 dm / sqrt(v)), dm the exp_avg bound. Where the gradient is near
+        its rounding noise (the key bias's is zero in exact arithmetic)
+        Adam's normalisation makes that up to 2 lr."""
+        def clone(st):
+            return dict(st, params=copy.deepcopy(st["params"]), opt_state={
+                k: v.clone() if isinstance(v, torch.Tensor) else
+                [t.clone() for t in v] for k, v in st["opt_state"].items()})
+
+        got, _ = compiled_fn(clone(state), batch)
+        want, _ = eager_fn(clone(state), batch)
+        names = [n for n, _ in got["params"].named_parameters()]
+        worst = {}
+
+        def note(kind, n, share, err, bound):
+            if kind not in worst or share > worst[kind][0]:
+                worst[kind] = (share, n, err, bound)
+
+        for i, n in enumerate(names):
+            m, v = want["opt_state"]["exp_avg"][i], want["opt_state"]["exp_avg_sq"][i]
+            m_bound = 2e-4 * float(m.abs().max())
+            for kind, tol in (("exp_avg", 2e-4), ("exp_avg_sq", 4e-4)):
+                x, y = got["opt_state"][kind][i], want["opt_state"][kind][i]
+                err, bound = float((x - y).abs().max()), tol * float(y.abs().max())
+                note(kind, n, err / bound if bound else (0.0 if err == 0 else math.inf),
+                     err, bound)
+            diff = (got["params"].get_parameter(n).detach()
+                    - want["params"].get_parameter(n).detach()).abs()
+            bound = lr * torch.clamp(4 * m_bound / v.sqrt(),
+                                     max=2.0).nan_to_num(2.0)
+            k = int(torch.argmax(diff / bound))
+            note("param", n, float(diff.flatten()[k] / bound.flatten()[k]),
+                 float(diff.flatten()[k]), float(bound.flatten()[k]))
+        log(f"{label} leaves after one more step at lr {lr}, compiled against "
+            f"eager, worst per kind (share of bound, leaf, abs diff, bound): "
+            f"{worst}")
+        check(all(w[0] <= 1.0 for w in worst.values()),
+              f"{label} leaves outside their bounds: {worst}")
+
+    def check_update(label, state, opt):
+        """The compiled update, the train step's Inductor program of
+        ``clip_adamw_`` (built by the step's own ``_program``), against
+        ``clip_adamw_`` run eagerly, on two copies of ``state`` after its
+        steps: its parameters, moments and step counts, the gradients the
+        last step left (times 3, so the clip scales them), at the peak lr.
+        The same f32 arithmetic, fused or in multi-tensor kernels: each
+        parameter leaf within 1e-6 of its largest element plus 1e-5 lr,
+        each moment within 1e-5 of its largest element, the steps equal
+        and the norm within 1e-6 relative. A wrong decay or moment term
+        moves far more (lr * wd * p is 2e-6 at p = 0.02, 20x this
+        bound)."""
+        lr = opt.config.learning_rate
+        plist = list(state["params"].parameters())
+        outs = []
+        for fn in (step_mod._program(step_mod.clip_adamw_, "auto"), None):
+            args = ([p.detach().clone() for p in plist],
+                    [p.grad * 3 for p in plist],
+                    [t.clone() for t in state["opt_state"]["exp_avg"]],
+                    [t.clone() for t in state["opt_state"]["exp_avg_sq"]],
+                    [t.clone() for t in state["opt_state"]["step"]],
+                    torch.full((), lr, dtype=torch.float32, device=dev))
+            norm = (fn(dev, *args, **opt.hyper) if fn is not None
+                    else step_mod.clip_adamw_(*args, **opt.hyper))
+            outs.append((float(norm), args[0], args[2], args[3], args[4]))
+        (n_c, *leaves_c), (n_e, *leaves_e) = outs
+        worst = {}
+        for kind, xs, ys in zip(("param", "exp_avg", "exp_avg_sq", "step"),
+                                leaves_c, leaves_e):
+            for x, y in zip(xs, ys):
+                scale = float(y.abs().max())
+                bound = {"param": 1e-6 * scale + 1e-5 * lr, "step": 0.0}.get(
+                    kind, 1e-5 * scale)
+                err = float((x - y).abs().max())
+                share = err / bound if bound else (0.0 if err == 0 else math.inf)
+                worst[kind] = max(worst.get(kind, 0.0), share)
+        log(f"{label} compiled update against eager (lr {lr}, norm {n_c:.6f} "
+            f"vs {n_e:.6f}): worst share of bound per kind {worst}")
+        check(abs(n_c - n_e) <= 1e-6 * abs(n_e) and all(
+            w <= 1.0 for w in worst.values()),
+            f"{label} compiled update: norm {n_c} vs {n_e}, {worst}")
 
     def train_parity(label, par_cfg, V):
-        """f32, B=2, T=256, 3 steps through the kernels against the plain
-        (flash_interpret) path: loss and grad_norm within 2e-4 relative."""
-        par = {}
-        for impl in ("flash", "flash_interpret"):
+        """f32, B=2, T=256, 3 steps of the compiled step through the kernels
+        against the eager step on the plain (flash_interpret) path: loss
+        and grad_norm within 2e-4 relative; then the compiled eval step
+        (K1) against the eager plain one on each side's parameters, within
+        the same bound. Then the leaves after one more step by
+        check_leaves, and the compiled update by check_update."""
+        par, evals, states, fns = {}, {}, {}, {}
+        for impl, backend in (("flash", "auto"), ("flash_interpret", None)):
             cfg = dataclasses.replace(par_cfg, attention_impl=impl)
             opt = opt_cfg.build()
             st = create_train_state(cfg, opt, torch.Generator().manual_seed(3), dev)
-            fn = make_train_step(cfg, opt)
+            fn = make_train_step(cfg, opt, backend=backend)
             toks = torch.randint(0, V, (2, 257), device=dev,
                                  generator=torch.Generator(device=dev).manual_seed(4))
             rows = []
             for _ in range(3):
                 st, m = fn(st, {"tokens": toks})
                 rows.append((float(m["loss"]), float(m["grad_norm"])))
-            par[impl] = rows
-            del st, fn, opt
+            fns[impl] = fn
+            par[impl], states[impl] = rows, st
+            evals[impl] = float(make_eval_step(cfg, backend=backend)(
+                st["params"], {"tokens": toks}))
         par_rel = max(abs(a - b) / abs(b)
                       for ka, kb in zip(par["flash"], par["flash_interpret"])
                       for a, b in zip(ka, kb))
+        eval_rel = abs(evals["flash"] - evals["flash_interpret"]) / abs(
+            evals["flash_interpret"])
         log(f"train parity {label} f32 depth 2 B=2 T=256, (loss, grad_norm) per "
-            f"step: kernels {par['flash']}, plain {par['flash_interpret']}; max "
-            f"rel diff {par_rel:.3e} (bound 2e-4)")
-        check(par_rel <= 2e-4, f"{label} train parity: max rel diff "
-              f"{par_rel:.3e} > 2e-4")
+            f"step: compiled through the kernels {par['flash']}, eager plain "
+            f"{par['flash_interpret']}; max rel diff {par_rel:.3e} (bound "
+            f"2e-4); eval loss after them compiled {evals['flash']:.7f}, eager "
+            f"plain {evals['flash_interpret']:.7f}, rel diff {eval_rel:.3e}")
+        check(par_rel <= 2e-4 and eval_rel <= 2e-4, f"{label} train parity: "
+              f"max rel diff {par_rel:.3e}, eval {eval_rel:.3e} > 2e-4")
+        eager_fn = make_train_step(dataclasses.replace(
+            par_cfg, attention_impl="flash"), opt, backend=None)
+        check_leaves(f"train parity {label}", states["flash"], fns["flash"],
+                     eager_fn, {"tokens": toks}, opt.schedule(3))
+        check_update(f"train parity {label}", states["flash"], opt)
+        del states, fns, opt
 
     # ------------------------------- 3. main path: GPT-2-small full forward
     attn.launches["flash_fwd"] = 0
@@ -958,21 +1146,45 @@ def main() -> int:
     train_launches = gtrain["launches"]
 
     # remat "full" keeps only each block's inputs: the backward re-runs the
-    # block, K2 included (JAX's "full" policy does the same).
-    full_step = make_train_step(dataclasses.replace(train_cfg, remat_policy="full"),
-                                opt)
+    # block, K2 included (JAX's "full" policy does the same). Two compiled
+    # steps: the first compiles, the second is timed.
+    state, full = timed_steps(make_train_step(
+        dataclasses.replace(train_cfg, remat_policy="full"), opt), state, batch, 2)
+    full_ms = full["step_s"][1] * 1e3
+    log(f"train steps under remat full, compiled: losses {full['losses']}, "
+        f"{full['step_s'][0]:.1f} s (compiling), {full_ms:.1f} ms, launches "
+        f"{full['per_step']}")
+    check(all(c == {**gtrain["want"], "flash_fwd_lse": 2 * L}
+              for c in full["per_step"]), f"remat full launches {full['per_step']}")
+
+    # The compiled eval step (no gradient: K1 once a layer), K1's count set
+    # to 0 just before its two calls (the first compiles) and read just
+    # after; against the eager eval step. bf16: eager rounds every op's
+    # output to bf16 (2^-8 relative), the fused program only each kernel's,
+    # so the mean loss is held within 1e-2 relative.
+    eval_step = make_eval_step(train_cfg)
+    attn.launches["flash_fwd"] = 0
     before = dict(attn.launches)
-    t = time.perf_counter()
-    state, metrics = full_step(state, batch)
-    full_loss = float(metrics["loss"])
-    torch.cuda.synchronize()
-    full_ms = (time.perf_counter() - t) * 1e3
-    full_counts = {n: attn.launches[n] - before[n] for n in attn.launches}
-    log(f"train step under remat full: loss {full_loss:.4f}, {full_ms:.1f} ms, "
-        f"launches {full_counts}")
-    check(full_counts == {**gtrain["want"], "flash_fwd_lse": 2 * L},
-          f"remat full launches {full_counts}")
-    del state, full_step, batch, metrics, opt
+    eval_s = []
+    for _ in range(2):
+        t = time.perf_counter()
+        eval_loss = float(eval_step(state["params"], batch))
+        torch.cuda.synchronize()
+        eval_s.append(time.perf_counter() - t)
+    eval_counts = {n: attn.launches[n] - before[n] for n in attn.launches}
+    eval_launches = eval_counts["flash_fwd"]
+    eager_eval = float(make_eval_step(train_cfg, backend=None)(state["params"],
+                                                               batch))
+    log(f"eval step GPT-2 small B={B} T={T}, compiled: loss {eval_loss:.5f} "
+        f"(eager {eager_eval:.5f}), {eval_s[0]:.1f} s (compiling), "
+        f"{eval_s[1] * 1e3:.1f} ms; launches {eval_counts}")
+    check(eval_counts == {"flash_fwd": 2 * L, "flash_fwd_lse": 0,
+                          "flash_bwd_dkv": 0, "flash_bwd_dq": 0},
+          f"eval launches {eval_counts}")
+    check(math.isfinite(eval_loss)
+          and abs(eval_loss - eager_eval) <= 1e-2 * abs(eager_eval),
+          f"eval loss {eval_loss} against eager {eager_eval}")
+    del state, batch, opt, eval_step
     torch.cuda.empty_cache()
     phase_done(5)
 
@@ -1091,23 +1303,31 @@ def main() -> int:
     roof = matmul_roof_tflops()
 
     def log_step(label, cfg, mod, B, T, tr, extra=""):
-        """Train-step numbers: median of steps 1.. (step 0 includes
-        warm-up), tokens/s, MFU against the data sheet and the matmul
-        chain, peak memory."""
-        step_ms = float(np.median(tr["step_s"][1:])) * 1e3
-        tokens_per_s = B * T / (step_ms * 1e-3)
-        model_tflops = mod.flops_per_token(cfg) * tokens_per_s / 1e12
-        log(f"[{card}] train step {label} B={B} T={T} remat dots: median "
-            f"{step_ms:.2f} ms over {len(tr['step_s']) - 1} steps (step 0 "
-            f"{tr['step_s'][0] * 1e3:.1f} ms), {tokens_per_s:.0f} tokens/s; model "
-            f"{model_tflops:.1f} TFLOP/s (6N per token): MFU "
-            f"{model_tflops / (PEAK_FLOPS['bfloat16'] / 1e12):.1%} of the data "
-            f"sheet's 989, {model_tflops / roof:.1%} of the measured bf16 matmul "
-            f"chain ({roof:.1f} TFLOP/s); peak memory {tr['peak_gb']:.2f} GB"
-            + extra)
+        """Train-step numbers of the compiled step and of the eager one
+        beside it: median of steps 1.. (step 0 compiles, or warms up),
+        tokens/s, MFU against the data sheet and the matmul chain, peak
+        memory; the compiled step's compile seconds (step 0 less the
+        median)."""
+        for kind, run in (("compiled", tr), ("eager", tr["eager"])):
+            step_ms = float(np.median(run["step_s"][1:])) * 1e3
+            tokens_per_s = B * T / (step_ms * 1e-3)
+            model_tflops = mod.flops_per_token(cfg) * tokens_per_s / 1e12
+            compile_s = run["step_s"][0] - step_ms / 1e3
+            log(f"[{card}] train step {label} L={cfg.num_layers} B={B} T={T} "
+                f"remat dots, {kind}: "
+                f"median {step_ms:.2f} ms over {len(run['step_s']) - 1} steps "
+                f"(step 0 {run['step_s'][0] * 1e3:.1f} ms"
+                + (f", compiling {compile_s:.1f} s" if kind == "compiled" else "")
+                + f"), {tokens_per_s:.0f} tokens/s; model "
+                f"{model_tflops:.1f} TFLOP/s (6N per token): MFU "
+                f"{model_tflops / (PEAK_FLOPS['bfloat16'] / 1e12):.1%} of the data "
+                f"sheet's 989, {model_tflops / roof:.1%} of the measured bf16 matmul "
+                f"chain ({roof:.1f} TFLOP/s); peak memory {run['peak_gb']:.2f} GB"
+                + (extra if kind == "compiled" else ""))
 
-    log_step("GPT-2 small", small, gpt2, *TRAIN_BATCH, gtrain,
-             f"; remat full step {full_ms:.1f} ms")
+    log_step("GPT-2 small", train_cfg, gpt2, *TRAIN_BATCH, gtrain,
+             f"; remat full step {full_ms:.1f} ms; eval step "
+             f"{eval_s[1] * 1e3:.1f} ms")
     phase_done(7)
 
     # ------------------------------ 8. main path: llama serving, llama-1b
@@ -1153,7 +1373,7 @@ def main() -> int:
                                             *LLAMA_TRAIN_BATCH)
     del state, batch, opt
     torch.cuda.empty_cache()
-    log_step("llama-1b", l1b, llama, *LLAMA_TRAIN_BATCH, ltrain)
+    log_step("llama-1b", ltrain_cfg, llama, *LLAMA_TRAIN_BATCH, ltrain)
     phase_done(9)
 
     # ------------------------------------------ 10. llama training parity
@@ -1178,25 +1398,47 @@ def main() -> int:
                            prompts_l, 8)
     del eng
     release()
-    moe_train = dataclasses.replace(mcfg, attention_impl="flash")
-    opt = opt_cfg.build()
-    state = create_train_state(moe_train, opt, torch.Generator().manual_seed(6),
-                               dev)
+    # Training routes through capacity queues with the router's jitter on:
+    # three compiled steps (the noise, drawn outside the program, is a new
+    # input each step and compiles nothing; updates 1 and 2 at a nonzero
+    # lr) against three eager steps from the same init, within 2e-4
+    # relative (f32), then their leaves and the compiled update.
+    moe_train = dataclasses.replace(mcfg, attention_impl="flash", moe=(
+        dataclasses.replace(mcfg.moe, router_jitter=0.01)))
     toks = torch.randint(0, mcfg.vocab_size, (2, 257), device=dev, generator=gen)
-    before = dict(attn.launches)
-    state, metrics = make_train_step(moe_train, opt)(state, {"tokens": toks})
-    moe_loss = float(metrics["loss"])
-    moe_counts = {n: attn.launches[n] - before[n] for n in attn.launches}
+    runs, states, fns = {}, {}, {}
+    for backend in ("auto", None):
+        opt = opt_cfg.build()
+        fns[backend] = make_train_step(moe_train, opt, seed=7, backend=backend)
+        states[backend], runs[backend] = timed_steps(
+            fns[backend],
+            create_train_state(moe_train, opt, torch.Generator().manual_seed(6),
+                               dev), {"tokens": toks}, 3)
+    check_leaves("MoE llama train steps", states["auto"], fns["auto"],
+                 fns[None], {"tokens": toks}, opt.schedule(3))
+    check_update("MoE llama train steps", states["auto"], opt)
+    state = states["auto"]
+    del states, fns, opt
+    moe_losses, moe_norms = runs["auto"]["losses"], runs["auto"]["norms"]
+    moe_rel = max(abs(a - b) / abs(b) for k in ("losses", "norms")
+                  for a, b in zip(runs["auto"][k], runs[None][k]))
     with torch.no_grad():
         _, moe_aux = llama.forward(state["params"], toks[:, :-1], moe_train)
     moe_aux = float(moe_aux)
-    log(f"MoE llama train step (capacity routing, 8 experts, top-2): loss "
-        f"{moe_loss:.4f}, aux {moe_aux:.6f}, launches {moe_counts}")
-    check(math.isfinite(moe_loss) and moe_aux > 0.0,
-          f"MoE train step: loss {moe_loss}, aux {moe_aux}")
-    check(moe_counts["flash_fwd_lse"] == 2 and moe_counts["flash_bwd_dq"] == 2
-          and moe_counts["flash_bwd_dkv"] == 2, f"MoE launches {moe_counts}")
-    del state, opt
+    log(f"MoE llama train steps (capacity routing, 8 experts, top-2, router "
+        f"jitter 0.01), compiled: losses {moe_losses}, grad norms {moe_norms}, "
+        f"aux {moe_aux:.6f}, launches {runs['auto']['per_step']}; eager "
+        f"losses {runs[None]['losses']}; max rel diff {moe_rel:.3e} (bound "
+        "2e-4)")
+    check(all(math.isfinite(x) for x in moe_losses + moe_norms)
+          and moe_aux > 0.0 and moe_rel <= 2e-4,
+          f"MoE train steps: losses {moe_losses}, aux {moe_aux}, rel diff "
+          f"{moe_rel:.3e}")
+    check(len(runs["auto"]["per_step"]) == 3 and all(
+        c["flash_fwd_lse"] == 2 and c["flash_bwd_dq"] == 2
+        and c["flash_bwd_dkv"] == 2 for c in runs["auto"]["per_step"]),
+          f"MoE launches {runs['auto']['per_step']}")
+    del state
     torch.cuda.empty_cache()
     phase_done(11)
 
@@ -1355,11 +1597,11 @@ def main() -> int:
     # holds the same keys at llama-1b's shapes; "launches" is the sum of
     # the main paths, "launches_by_path" each.
     row = kernel_row("flash_fwd", 73, "flash_fwd.cu",
-                     main_launches + llama_k1_launches + serving_launches,
-                     case_err("entry"), k1["ms"], k1["plain_ms"], k1["bound"],
-                     k1["sdpa_ms"])
+                     main_launches + llama_k1_launches + serving_launches
+                     + eval_launches, case_err("entry"), k1["ms"],
+                     k1["plain_ms"], k1["bound"], k1["sdpa_ms"])
     row["launches_by_path"] = {"gpt2": main_launches, "llama": llama_k1_launches,
-                               "serving": serving_launches}
+                               "serving": serving_launches, "eval": eval_launches}
     row["llama1b"] = kernel_row(
         "flash_fwd", 73, "flash_fwd.cu", llama_k1_launches,
         case_err("llama1b-serve"), k1_llama["ms"], k1_llama["plain_ms"],

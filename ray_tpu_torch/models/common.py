@@ -1,12 +1,14 @@
-"""What the model families share: activation checkpointing of a block,
-the MoE router's per-layer seeds and the loss's batch contract.
+"""What the model families share: the block region with its activation
+checkpointing, the per-layer slices of the stacked weights, the MoE
+router's jitter noise and the loss's batch contract.
 
 Checkpointing is the analog of ``jax.checkpoint(body, policy=...)`` over a
-block: "full"
-keeps only the block's inputs and re-runs the whole block (the attention
-forward included) in the backward; "dots" and "dots_all" are selective
-checkpointing that keeps the flash forward's (out, lse) and the matrix
-products the policy names, and recomputes the elementwise ops.
+block: "full" keeps only the block's inputs and re-runs the whole block
+(the attention forward included) in the backward; "dots" and "dots_all" are
+selective checkpointing that keeps the flash forward's (out, lse) and the
+matrix products the policy names, and recomputes the elementwise ops. The
+block is a nested compile region, the analog of the reference's
+``lax.scan`` over layers: a compiled step traces one layer, not L.
 """
 from __future__ import annotations
 
@@ -45,35 +47,82 @@ def _policy(policy: str, ctx, func, *args, **kwargs):
 
 
 def checkpointed(block: Callable, remat: bool, policy: str) -> Callable:
-    """``block`` under activation checkpointing by ``policy`` when autograd
-    records; ``block`` itself with ``remat=False`` or without grad."""
-    if not (remat and torch.is_grad_enabled()):
-        return block
-    kw = {"use_reentrant": False}
-    if policy != "full":
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts,
-            functools.partial(_policy, policy))
-    return lambda *args: checkpoint(block, *args, **kw)
+    """``block`` (-> (x, aux loss)) as the region every layer calls: under
+    activation checkpointing by ``policy`` when ``remat`` and autograd
+    records, and under ``torch.compile`` a nested compile region, which
+    Dynamo traces once and every layer reuses, so a compiled step's
+    compile does not grow with the depth. Eager, it is a plain call."""
+    return _BlockRegion(block, policy if remat and torch.is_grad_enabled()
+                        else None)
 
 
-def layer_seeds(rng: Optional[torch.Generator], config) -> list:
-    """One seed per layer, drawn from ``rng`` (a CPU generator) when the
-    config's MoE router jitters, else Nones. JAX splits its key per layer;
-    a seed (not a generator) goes into the checkpointed block, so a re-run
-    in the backward draws the same noise."""
+class _BlockRegion(torch.nn.Module):
+    """The region of ``checkpointed``. A module, because a nested compile
+    region takes tensors and modules only: ``block`` and the policy ride
+    on it. A region returns tensors only, so a dense block's aux loss 0.0
+    comes back as an f32 0-dim tensor."""
+
+    def __init__(self, block: Callable, policy: Optional[str]):
+        super().__init__()
+        self.block, self.policy = block, policy
+
+    @torch.compiler.nested_compile_region
+    def forward(self, *args):
+        if self.policy is None:
+            x, aux = self.block(*args)
+        else:
+            kw = {"use_reentrant": False}
+            if self.policy != "full":
+                kw["context_fn"] = functools.partial(
+                    create_selective_checkpoint_contexts,
+                    functools.partial(_policy, self.policy))
+            x, aux = checkpoint(self.block, *args, **kw)
+        if not isinstance(aux, torch.Tensor):
+            aux = x.new_zeros((), dtype=torch.float32)
+        return x, aux
+
+
+def layers(blocks, num_layers: int):
+    """Per-layer dicts of the stacked block parameters ``blocks`` (the MoE
+    experts' under "moe"), each leaf unbound once along its leading L: the
+    gradient of an unbind is one stack, where a select per layer would
+    scatter a whole [L, ...] gradient per layer. Under ``torch.compile``
+    each leaf is a copy: Dynamo (torch 2.11) reuses a nested compile
+    region's trace only for inputs that are not views, and the views of
+    one stacked tensor differ in their storage offsets."""
+    def split(w):
+        parts = w.unbind(0)
+        if torch.compiler.is_compiling():
+            parts = [p.clone() for p in parts]
+        return parts
+
+    cols = {n: split(w) for n, w in blocks.items() if n != "moe"}
+    moe = ({n: split(w) for n, w in blocks["moe"].items()}
+           if "moe" in blocks else None)
+    out = []
+    for i in range(num_layers):
+        layer = {n: c[i] for n, c in cols.items()}
+        if moe is not None:
+            layer["moe"] = {n: c[i] for n, c in moe.items()}
+        out.append(layer)
+    return out
+
+
+def router_noise(config, n_tokens: int, seed: int,
+                 device) -> Optional[torch.Tensor]:
+    """The MoE router's jitter noise of one forward: standard normal
+    [num_layers, n_tokens, num_experts] f32 on ``device``, drawn from a
+    generator seeded with ``seed``; None unless the config's router
+    jitters. JAX splits its key per layer; here layer i's block takes row
+    i as an input, so a checkpointed block that re-runs in the backward
+    adds the same noise, and the draw stays outside a compiled program
+    (Dynamo does not trace a ``torch.Generator``)."""
     moe = config.moe
-    if rng is None or moe is None or not moe.router_jitter:
-        return [None] * config.num_layers
-    return torch.randint(0, 2 ** 62, (config.num_layers,),
-                         generator=rng).tolist()
-
-
-def layer_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
-    """A generator on ``device`` seeded with ``seed``, or None."""
-    if seed is None:
+    if moe is None or not moe.router_jitter:
         return None
-    return torch.Generator(device=device).manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((config.num_layers, n_tokens, moe.num_experts),
+                       generator=gen, device=device, dtype=torch.float32)
 
 
 def next_token_batch(batch: Dict[str, Any], device):

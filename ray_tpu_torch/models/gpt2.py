@@ -238,12 +238,12 @@ def _attn_residual(layer, x, attn):
     return x + attn + layer["proj_b"].to(x.dtype)
 
 
-def _mlp_residual(config: GPT2Config, layer, x, rng=None):
+def _mlp_residual(config: GPT2Config, layer, x, noise=None):
     """ln2 + MLP (or MoE) + residual. Returns (x, aux loss); the aux loss is
-    MoE's (0.0 for the dense MLP)."""
+    MoE's (0.0 for the dense MLP); ``noise`` is the router's jitter noise."""
     h = _layer_norm(x, layer["ln2_g"], layer["ln2_b"])
     if config.moe is not None:
-        h, aux = moe_layer(layer["moe"], h, config.moe, rng=rng)
+        h, aux = moe_layer(layer["moe"], h, config.moe, noise=noise)
         return x + h, aux
     h = torch.einsum("bte,em->btm", h, layer["fc_w"].to(h.dtype))
     # jax.nn.gelu's default is the tanh approximation
@@ -252,16 +252,16 @@ def _mlp_residual(config: GPT2Config, layer, x, rng=None):
     return x + h + layer["out_b"].to(h.dtype), 0.0
 
 
-def _block(config: GPT2Config, x, layer, seed=None):
+def _block(config: GPT2Config, x, layer, noise=None):
     """One transformer block. x: [B, T, E]; layer: one slice of the stacked
-    block parameters; ``seed`` (an int, or None) seeds the MoE router's
-    jitter, so a re-run under checkpointing draws the same noise."""
+    block parameters; ``noise`` ([B*T, experts] or None) is the MoE
+    router's jitter noise, an input, so a re-run under checkpointing adds
+    the same noise."""
     h = _layer_norm(x, layer["ln1_g"], layer["ln1_b"])
     q, k, v = _qkv(layer, h)
     attn = attention(q, k, v, causal=True, impl=config.attention_impl)
     x = _attn_residual(layer, x, attn)
-    return _mlp_residual(config, layer, x,
-                         rng=common.layer_generator(seed, x.device))
+    return _mlp_residual(config, layer, x, noise)
 
 
 def _layer(params, i: int) -> Dict[str, Any]:
@@ -273,29 +273,32 @@ def _layer(params, i: int) -> Dict[str, Any]:
 
 
 def forward_features(params, tokens: torch.Tensor, config: GPT2Config,
-                     rng: Optional[torch.Generator] = None):
+                     router_noise: Optional[torch.Tensor] = None):
     """tokens [B, T] int -> (final-trunk features [B, T, E], aux loss).
     Under autograd each block runs under ``config.remat``/``remat_policy``;
     the loss path consumes the features directly (``ops/xent.py``), so the
-    [B, T, V] logits never materialise. ``rng`` (a CPU generator) feeds the
-    MoE router's jitter."""
+    [B, T, V] logits never materialise. ``router_noise``
+    (``common.router_noise``'s [L, B*T, experts]) feeds the MoE router's
+    jitter."""
     B, T = tokens.shape
     x = params["wte"][tokens].to(config.dtype)
     x = x + params["wpe"][:T][None].to(config.dtype)
     aux = 0.0
     block = common.checkpointed(functools.partial(_block, config),
                                config.remat, config.remat_policy)
-    for i, seed in enumerate(common.layer_seeds(rng, config)):
-        x, layer_aux = block(x, _layer(params, i), seed)
+    for i, layer in enumerate(common.layers(params["blocks"],
+                                            config.num_layers)):
+        noise = None if router_noise is None else router_noise[i]
+        x, layer_aux = block(x, layer, noise)
         aux = aux + layer_aux
     x = _layer_norm(x, params["ln_f_g"], params["ln_f_b"])
     return x, aux
 
 
 def forward(params, tokens: torch.Tensor, config: GPT2Config,
-            rng: Optional[torch.Generator] = None):
+            router_noise: Optional[torch.Tensor] = None):
     """tokens [B, T] int -> (logits [B, T, V] f32, aux loss)."""
-    x, aux = forward_features(params, tokens, config, rng=rng)
+    x, aux = forward_features(params, tokens, config, router_noise)
     logits = torch.einsum("bte,ve->btv", x, params["wte"].to(x.dtype))
     return logits.to(torch.float32), aux
 
@@ -367,18 +370,18 @@ def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
 
 def loss_fn(params, batch: Dict[str, Any], config: GPT2Config,
             pipeline_microbatches: Optional[int] = None,
-            rng: Optional[torch.Generator] = None) -> torch.Tensor:
+            router_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token cross entropy plus the MoE aux loss, an f32 scalar. batch:
     {"tokens": [B, T+1]} or {"inputs": [B, T], "targets": [B, T]}, with an
     optional "mask" [B, T] of weights. Tensors or numpy arrays; they move to
-    the params' device. ``rng`` feeds the MoE router's jitter. The pipelined
-    path needs the parallel layer, which is not ported yet."""
+    the params' device. ``router_noise`` feeds the MoE router's jitter. The
+    pipelined path needs the parallel layer, which is not ported yet."""
     if pipeline_microbatches:
         raise NotImplementedError(
             "pipeline_microbatches needs the parallel layer, which is not "
             "ported yet")
     inputs, targets, mask = common.next_token_batch(batch, params["wte"].device)
-    x, aux = forward_features(params, inputs, config, rng=rng)
+    x, aux = forward_features(params, inputs, config, router_noise)
     return chunked_softmax_xent(x, params["wte"], targets, mask) + aux
 
 

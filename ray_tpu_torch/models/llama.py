@@ -261,11 +261,12 @@ def _qkv(config: LlamaConfig, layer, x, pos):
             v)
 
 
-def _ffn(config: LlamaConfig, layer, x, rng=None):
-    """mlp_norm + SwiGLU MLP (or routed MoE) + residual -> (x, aux loss)."""
+def _ffn(config: LlamaConfig, layer, x, noise=None):
+    """mlp_norm + SwiGLU MLP (or routed MoE) + residual -> (x, aux loss);
+    ``noise`` is the router's jitter noise."""
     h = _rms_norm(x, layer["mlp_norm"], config.rms_eps)
     if config.moe is not None:
-        h, aux = moe_layer(layer["moe"], h, config.moe, rng=rng)
+        h, aux = moe_layer(layer["moe"], h, config.moe, noise=noise)
         return x + h, aux
     gate = torch.einsum("bte,em->btm", h, layer["w_gate"].to(h.dtype))
     up = torch.einsum("bte,em->btm", h, layer["w_up"].to(h.dtype))
@@ -274,13 +275,13 @@ def _ffn(config: LlamaConfig, layer, x, rng=None):
     return x + h, 0.0
 
 
-def _block(config: LlamaConfig, x, layer, pos, seed=None):
+def _block(config: LlamaConfig, x, layer, pos, noise=None):
     """One decoder block -> (x, aux). x: [B, T, E], pos: [B, T] absolute;
-    ``seed`` (an int, or None) seeds the MoE router's jitter."""
+    ``noise`` ([B*T, experts] or None) is the MoE router's jitter noise."""
     q, k, v = _qkv(config, layer, x, pos)
     attn = attention(q, k, v, causal=True, impl=config.attention_impl)
     x = x + torch.einsum("bthd,hde->bte", attn, layer["wo"].to(x.dtype))
-    return _ffn(config, layer, x, rng=common.layer_generator(seed, x.device))
+    return _ffn(config, layer, x, noise)
 
 
 def _layer(params, i: int) -> Dict[str, Any]:
@@ -297,28 +298,31 @@ def _policy(config: LlamaConfig) -> str:
 
 
 def forward_features(params, tokens: torch.Tensor, config: LlamaConfig,
-                     rng: Optional[torch.Generator] = None):
+                     router_noise: Optional[torch.Tensor] = None):
     """tokens [B, T] int -> (final-trunk features [B, T, E], aux loss).
     Under autograd each block runs under ``config.remat``; the loss path
     consumes the features directly, so the [B, T, V] logits never
-    materialise. ``rng`` (a CPU generator) feeds the MoE router's jitter."""
+    materialise. ``router_noise`` (``common.router_noise``'s [L, B*T,
+    experts]) feeds the MoE router's jitter."""
     B, T = tokens.shape
     x = params["wte"][tokens].to(config.dtype)
     pos = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
     aux = 0.0
     block = common.checkpointed(functools.partial(_block, config),
                                 config.remat, _policy(config))
-    for i, seed in enumerate(common.layer_seeds(rng, config)):
-        x, layer_aux = block(x, _layer(params, i), pos, seed)
+    for i, layer in enumerate(common.layers(params["blocks"],
+                                            config.num_layers)):
+        noise = None if router_noise is None else router_noise[i]
+        x, layer_aux = block(x, layer, pos, noise)
         aux = aux + layer_aux
     x = _rms_norm(x, params["norm_f"], config.rms_eps)
     return x, aux
 
 
 def forward(params, tokens: torch.Tensor, config: LlamaConfig,
-            rng: Optional[torch.Generator] = None):
+            router_noise: Optional[torch.Tensor] = None):
     """tokens [B, T] int -> (logits [B, T, V] f32, MoE aux loss)."""
-    x, aux = forward_features(params, tokens, config, rng=rng)
+    x, aux = forward_features(params, tokens, config, router_noise)
     logits = torch.einsum("bte,ve->btv", x, params["lm_head"].to(x.dtype))
     return logits.to(torch.float32), aux
 
@@ -385,16 +389,17 @@ def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
 
 def loss_fn(params, batch: Dict[str, Any], config: LlamaConfig,
             pipeline_microbatches: Optional[int] = None,
-            rng: Optional[torch.Generator] = None) -> torch.Tensor:
+            router_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token cross entropy over the untied ``lm_head`` plus the MoE aux
-    loss; the batch contract of ``gpt2.loss_fn``. The pipelined path needs
-    the parallel layer, which is not ported yet."""
+    loss; the batch contract of ``gpt2.loss_fn``. ``router_noise`` feeds
+    the MoE router's jitter. The pipelined path needs the parallel layer,
+    which is not ported yet."""
     if pipeline_microbatches:
         raise NotImplementedError(
             "pipeline_microbatches needs the parallel layer, which is not "
             "ported yet")
     inputs, targets, mask = common.next_token_batch(batch, params["wte"].device)
-    x, aux = forward_features(params, inputs, config, rng=rng)
+    x, aux = forward_features(params, inputs, config, router_noise)
     return chunked_softmax_xent(x, params["lm_head"], targets, mask) + aux
 
 

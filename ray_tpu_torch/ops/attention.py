@@ -10,15 +10,18 @@ Counterpart of ``ray_tpu/ops/attention.py``:
   the JAX kernels' ``interpret=True``); ``flash_attention_bwd_ref``
   composes the two backward ones. The CPU tests and ``chip_smoke.py`` hold
   the kernels to them.
-- ``flash_attention``: the wrapper, the analog of the JAX ``custom_vjp``.
-  Without a gradient to record, CUDA tensors launch K1 (the forward,
-  ``csrc/flash_fwd.cu``). With one, the forward is the custom op
+- ``flash_attention``: the wrapper, the analog of the JAX ``custom_vjp``,
+  over three custom ops that a compiled program traces through (each has
+  a fake implementation). Without a gradient to record it runs
+  ``ray_tpu_torch::flash_fwd``, which launches K1 (the forward,
+  ``csrc/flash_fwd.cu``) on CUDA tensors. With one, the forward is
   ``ray_tpu_torch::flash_fwd_lse``: it launches K2 (the same forward, also
-  writing lse) and saves (q, k, v, out, lse), and its backward launches K4
-  (dQ, and delta = rowsum(dO * O)) and then K3 (dK, dV, from that delta),
-  from ``csrc/flash_bwd.cu``. CPU tensors, and
-  ``interpret=True`` on any device, run the plain versions instead. There is
-  no fallback from a kernel to a plain version.
+  writing lse) and saves (q, k, v, out, lse), and its backward is
+  ``ray_tpu_torch::flash_bwd``, which launches K4 (dQ, and delta =
+  rowsum(dO * O)) and then K3 (dK, dV, from that delta), from
+  ``csrc/flash_bwd.cu``. CPU tensors, and ``interpret=True`` on any
+  device, run the plain versions inside the same ops. There is no fallback
+  from a kernel to a plain version.
 - ``attention``: the dispatcher.
 
 Shapes follow [batch, seq, heads, head_dim] throughout; lse is
@@ -432,13 +435,39 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, causal: bool):
     return dq, dk, dv, delta
 
 
-# ----------------------------------------------------- the autograd boundary
+# ------------------------------------------------------ the custom ops
 
-# A custom op rather than a plain autograd.Function: selective activation
-# checkpointing (models/gpt2.py, remat_policy "dots") sees it by name and
-# keeps its outputs, the analog of checkpoint_name("flash_out"/"flash_lse")
-# (attention.py:424-425); a ctypes launch inside an autograd.Function would
-# be invisible to the policy and re-run in every backward.
+# K1, K2 and the K4+K3 backward are custom ops with fake implementations,
+# so that a compiled program (``torch.compile``, the analog of ``jax.jit``;
+# ``train/step.py``) traces through them: Dynamo and AOTAutograd take their
+# outputs' shapes from the fake implementations and keep each op in the
+# graph as one opaque call, which launches its kernel at run time. Each op's
+# real implementation is the only place that launches its kernel (and
+# counts it), and the place that decides by the tensors' device: a CUDA
+# tensor launches the kernel, a CPU tensor (or ``interpret``) runs the plain
+# version, so a graph traced on the CPU holds the same ops as the card's.
+# Outputs are contiguous on both paths, as the fake implementations say.
+# flash_fwd_lse is also what selective activation checkpointing sees by name
+# (models/common.py, remat_policy "dots") to keep its outputs, the analog of
+# checkpoint_name("flash_out"/"flash_lse") (attention.py:424-425).
+
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, block_q: int, block_k: int,
+              interpret: bool) -> torch.Tensor:
+    """out: K1 for CUDA tensors, the plain version for CPU tensors or with
+    ``interpret``."""
+    if interpret or not q.is_cuda:
+        return flash_attention_ref(q, k, v, causal, block_q,
+                                   block_k).contiguous()
+    return _flash_fwd_cuda(q, k, v, causal)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, block_q, block_k, interpret):
+    return q.new_empty(q.shape)
+
+
 @torch.library.custom_op("ray_tpu_torch::flash_fwd_lse", mutates_args=())
 def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, block_q: int, block_k: int,
@@ -446,9 +475,36 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(out, lse): K2 for CUDA tensors, the plain version for CPU tensors or
     with ``interpret``."""
     if interpret or not q.is_cuda:
-        return flash_attention_ref(q, k, v, causal, block_q, block_k,
-                                   with_lse=True)
+        out, lse = flash_attention_ref(q, k, v, causal, block_q, block_k,
+                                       with_lse=True)
+        return out.contiguous(), lse.contiguous()
     return _flash_fwd_cuda(q, k, v, causal, with_lse=True)
+
+
+@flash_fwd_lse.register_fake
+def _flash_fwd_lse_fake(q, k, v, causal, block_q, block_k, interpret):
+    B, Tq, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Tq), dtype=torch.float32)
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_bwd", mutates_args=())
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              causal: bool, block_q: int, block_k: int, interpret: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): K4 (which also writes delta = rowsum(dO * O)) then K3
+    for CUDA tensors, the plain versions for CPU tensors or with
+    ``interpret``."""
+    if interpret or not q.is_cuda:
+        return tuple(g.contiguous() for g in flash_attention_bwd_ref(
+            q, k, v, out, lse, do, causal, block_q, block_k))
+    return _flash_bwd_cuda(q, k, v, out, lse, do, causal)[:3]
+
+
+@flash_bwd.register_fake
+def _flash_bwd_fake(q, k, v, out, lse, do, causal, block_q, block_k,
+                    interpret):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
 def _setup_context(ctx, inputs, output):
@@ -459,16 +515,12 @@ def _setup_context(ctx, inputs, output):
 
 def _backward(ctx, d_out, _d_lse):
     q, k, v, out, lse = ctx.saved_tensors
-    if ctx.interpret or not q.is_cuda:
-        grads = flash_attention_bwd_ref(q, k, v, out, lse, d_out, ctx.causal,
-                                        ctx.block_q, ctx.block_k)
-    else:
-        grads = _flash_bwd_cuda(q, k, v, out, lse, d_out, ctx.causal)[:3]
+    grads = flash_bwd(q, k, v, out, lse, d_out, ctx.causal, ctx.block_q,
+                      ctx.block_k, ctx.interpret)
     return (*grads, None, None, None, None)
 
 
-torch.library.register_autograd("ray_tpu_torch::flash_fwd_lse", _backward,
-                                setup_context=_setup_context)
+flash_fwd_lse.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -478,17 +530,15 @@ def flash_attention(q, k, v, causal: bool = True,
     """Flash attention. q: [B, Tq, H, D]; k/v: [B, Tk, Hkv, D].
 
     With a gradient to record (grad enabled and q, k or v requiring one),
-    runs ``flash_fwd_lse``: K2 forward and K3/K4 backward on CUDA tensors.
-    Otherwise CUDA tensors launch K1. CPU tensors, and ``interpret=True`` on
-    any device, run the plain versions, forward and backward. On CUDA
-    ``block_q``/``block_k`` are unused: the kernels have their own tiles. A
-    build or launch error propagates."""
+    runs ``flash_fwd_lse`` (K2 forward, ``flash_bwd`` backward); otherwise
+    ``flash_fwd`` (K1). CUDA tensors launch the kernels; CPU tensors, and
+    ``interpret=True`` on any device, run the plain versions, forward and
+    backward. On CUDA ``block_q``/``block_k`` are unused: the kernels have
+    their own tiles. A build or launch error propagates."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         out, _ = flash_fwd_lse(q, k, v, causal, block_q, block_k, interpret)
         return out
-    if interpret or not q.is_cuda:
-        return flash_attention_ref(q, k, v, causal, block_q, block_k)
-    return _flash_fwd_cuda(q, k, v, causal)
+    return flash_fwd(q, k, v, causal, block_q, block_k, interpret)
 
 
 def attention(q, k, v, *, causal: bool = True, impl: str = "auto",

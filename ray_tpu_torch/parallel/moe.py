@@ -105,12 +105,16 @@ def _experts(params, x_in: torch.Tensor, config: MoEConfig, lhs: str,
 
 
 def moe_layer(params, x: torch.Tensor, config: MoEConfig, *,
-              rng: Optional[torch.Generator] = None
+              noise: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, T, D] -> (out [B, T, D], aux loss, an f32 scalar).
 
-    The router runs in f32; with ``config.router_jitter`` and ``rng`` (a
-    generator on x's device) normal noise is added to its logits."""
+    The router runs in f32; with ``config.router_jitter`` and ``noise`` (a
+    standard normal [B*T, num_experts] f32 tensor on x's device) the jitter
+    times the noise is added to its logits. The noise is drawn by the
+    caller (``models.common.router_noise``), so a checkpointed block that
+    re-runs in the backward adds the same noise, and a compiled step draws
+    no random numbers inside its graph."""
     B, T, D = x.shape
     E = config.num_experts
     tokens = x.reshape(B * T, D)
@@ -120,10 +124,8 @@ def moe_layer(params, x: torch.Tensor, config: MoEConfig, *,
 
     router_logits = torch.einsum("td,de->te", tokens.to(torch.float32),
                                  params["router_w"].to(torch.float32))
-    if config.router_jitter and rng is not None:
-        router_logits = router_logits + config.router_jitter * torch.randn(
-            router_logits.shape, generator=rng, device=x.device,
-            dtype=torch.float32)
+    if config.router_jitter and noise is not None:
+        router_logits = router_logits + config.router_jitter * noise
     probs = torch.softmax(router_logits, dim=-1)       # [T, E]
     topk_mask = _top_k_mask(probs, config.top_k)      # [T, E] 0/1
     # Load-balancing auxiliary loss (Switch §2.2): mean gate fraction times

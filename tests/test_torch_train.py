@@ -248,4 +248,7 @@ def test_train_step_defaults_and_unported_options():
     with pytest.raises(NotImplementedError):
         make_eval_step(tcfg, mesh=object())
     state = create_train_state(tcfg, opt, torch.Generator().manual_seed(0), "cpu")
-    assert state["step"] == 0 and isinstance(state["opt_state"], torch.optim.AdamW)
+    n = len(list(state["params"].parameters()))
+    assert state["step"] == 0 and float(state["opt_state"]["lr"]) == 0.0
+    assert all(len(state["opt_state"][k]) == n
+               for k in ("step", "exp_avg", "exp_avg_sq"))
