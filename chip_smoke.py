@@ -104,13 +104,34 @@ Phases, in order; any failure exits non-zero:
     decode server, equal to the monolithic engine for a seeded top-p
     request; the batch stage over 16 prompts, each row equal to its prompt
     alone; the requests' tokens/s of 16 concurrent completions.
+13. The parallel layer. (a) The ring's per-step body
+    (``parallel/ring_attention.py``: ``ring_piece``, ``ring_merge``,
+    ``ring_piece_bwd``) at llama-1b's training shape, B=8, T=2048 in 4
+    chunks of 512, H=32 over Hkv=8, D=64, bf16, in one process (the
+    rotation is an index): every rank's pieces through K2 (causal on the
+    diagonal chunk, not causal below it) merged in f32 by lse, and their
+    backward through K4 + K3 from the merged out and lse, against K2 and
+    K4 + K3 over the whole sequence; then the same with causal=False
+    throughout. (b) The mesh path at full width: a world-size-1 NCCL group
+    and ``single_device_mesh()``; llama-1b (phase 9's preset and batch)
+    through ``create_train_state(mesh=)`` and ``make_train_step(config,
+    opt, mesh)`` (compiled: on one rank the model does not communicate),
+    6 steps: finite, falling, no recompile after step 0, L launches each of
+    K2, K3 and K4 a step, the first loss within 2e-3 relative of phase 9's
+    compiled step on the same state and batch (the reference's
+    sharded-against-unsharded bound), and the mesh eval step (L K1
+    launches); then, eagerly, 6 steps each with attention_impl "ring" and
+    "ulysses" (seq=1) and one step with pipeline_microbatches=2 (stage=1):
+    ms per step, tokens/s and peak memory beside phase 9's.
 
 Launch counts are set to 0 just before each main path and read just
 after it: K1's before phase 3 and after phase 4 (GPT-2 serving), before
 and after phase 8 (llama serving) and phase 12 (the OpenAI surface, where
 K1 runs the full-forward yardstick); K2-K4's before and after the 12 steps
 of phase 5 (GPT-2) and of phase 9 (llama); K1's before and after the two
-calls of phase 5's compiled eval step. The engines' programs count
+calls of phase 5's compiled eval step; K2-K4's before and after phase 13's
+ring body (causal and not) and its mesh train steps, and K1's around its
+mesh eval step. The engines' programs count
 their graph replays; each must replay on its main path. The last lines are the card, the
 ``kernels`` JSON line and the result line. It imports nothing of JAX and
 nothing of ``ray_tpu``.
@@ -359,6 +380,53 @@ def matmul_roof_tflops() -> float:
     return 2 * M * E * H * 2 * inner / (ms * 1e-3) / 1e12
 
 
+def ring_body_fwd(qc, kc, vc, causal):
+    """Ring attention's forward for every rank of an n-rank ring in one
+    process, from its per-step body (``parallel/ring_attention.py``): query
+    chunk i meets key/value chunk (i - step) mod n at each step, the
+    rotation an index. qc, kc, vc: the n chunks. Returns (out, lse) over the
+    whole sequence: out in q's dtype, lse f32."""
+    import torch
+
+    from ray_tpu_torch.parallel import ring_attention as ring
+
+    n, outs, lses = len(qc), [], []
+    for i in range(n):
+        acc = None
+        for step in range(n):
+            src = (i - step) % n
+            acc = ring.ring_merge(acc, ring.ring_piece(
+                qc[i], kc[src], vc[src], i, src, causal))
+        outs.append(acc[0].to(qc[i].dtype))
+        lses.append(acc[1])
+    return torch.cat(outs, 1), torch.cat(lses, 2)
+
+
+def ring_body_bwd(qc, kc, vc, dc, out, lse, causal):
+    """The backward of ``ring_body_fwd`` from the same per-step body, with
+    the whole sequence's out and lse: dq summed over its key chunks, dk/dv
+    over their query chunks, in f32, then cast to q's dtype."""
+    import torch
+
+    from ray_tpu_torch.parallel import ring_attention as ring
+
+    n, f32, tl = len(qc), torch.float32, qc[0].shape[1]
+    oc, lc = out.split(tl, 1), lse.split(tl, 2)
+    dq = [torch.zeros_like(x, dtype=f32) for x in qc]
+    dk = [torch.zeros_like(x, dtype=f32) for x in kc]
+    dv = [torch.zeros_like(x, dtype=f32) for x in vc]
+    for i in range(n):
+        for step in range(n):
+            src = (i - step) % n
+            g = ring.ring_piece_bwd(qc[i], kc[src], vc[src], oc[i], lc[i],
+                                    dc[i], i, src, causal)
+            if g is not None:
+                dq[i] += g[0]
+                dk[src] += g[1]
+                dv[src] += g[2]
+    return tuple(torch.cat(x, 1).to(qc[0].dtype) for x in (dq, dk, dv))
+
+
 def lively(model, names):
     """Random weights from the seed with the named block projections (and
     GPT-2's wpe) x3: at the plain init greedy decoding only repeats the
@@ -412,6 +480,9 @@ def main() -> int:
     from ray_tpu_torch.models import get_preset, gpt2, llama
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as attn
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.mesh import single_device_mesh
     from ray_tpu_torch.parallel.moe import MoEConfig
     from ray_tpu_torch.train import (
         OptimizerConfig,
@@ -947,6 +1018,7 @@ def main() -> int:
               f"{label} eager steps: losses {eager['losses']}, launches "
               f"{eager['per_step']}")
         return state, batch, opt, dict(launches=launches, peak_gb=peak_gb,
+                                       losses=losses,
                                        step_s=tr["step_s"], want=want,
                                        eager=eager)
 
@@ -1371,7 +1443,8 @@ def main() -> int:
                                      remat_policy="dots")
     state, batch, opt, ltrain = train_steps("llama-1b", ltrain_cfg,
                                             *LLAMA_TRAIN_BATCH)
-    del state, batch, opt
+    lbatch = batch
+    del state, opt
     torch.cuda.empty_cache()
     log_step("llama-1b", ltrain_cfg, llama, *LLAMA_TRAIN_BATCH, ltrain)
     phase_done(9)
@@ -1573,6 +1646,162 @@ def main() -> int:
     check(serving_launches > 0, "K1 was not launched on the serving path")
     phase_done(12)
 
+    # ---------------------------------------- 13. the parallel layer
+    # (a) The ring's per-step body at llama-1b's training shape, every
+    # rank's pieces in one process. Bounds: phase 2's bf16 contract (each
+    # side rounds its output to bf16 and P to bf16 before PV: 1e-2 + 1e-2|x|)
+    # holds for the ring's out, whose pieces are rounded to bf16 once more
+    # before their f32 merge (2^-9 relative each, inside the same bound);
+    # lse is f32 on both sides (LSE_TOL). The gradients are the sums of the
+    # pieces' bf16 outputs in f32 (dq over key chunks, dk/dv over query
+    # chunks), within GRAD_TOL's bf16 bound as K3/K4 against their plain
+    # versions.
+    RB, RT = LLAMA_TRAIN_BATCH
+    RN = 4
+    tl = RT // RN
+    q, k, v = qkv(RB, RT, lh, lkv, ld, bf16)
+    do = torch.randn(RB, RT, lh, ld, device=dev, generator=gen).to(bf16)
+    ring_rows = {}
+    for causal in (True, False):
+        with torch.no_grad():
+            ref_out, ref_lse = attn._flash_fwd_cuda(q, k, v, causal,
+                                                    with_lse=True)
+            ref_dq, ref_dk, ref_dv, _ = attn._flash_bwd_cuda(
+                q, k, v, ref_out, ref_lse, do, causal)
+        qc, kc, vc, dc = (x.split(tl, 1) for x in (q, k, v, do))
+
+        def ring_fwd():
+            return ring_body_fwd(qc, kc, vc, causal)
+
+        def ring_bwd(out, lse):
+            return ring_body_bwd(qc, kc, vc, dc, out, lse, causal)
+
+        before = dict(attn.launches)
+        with torch.no_grad():
+            out, lse = ring_fwd()
+            dq, dk, dv = ring_bwd(out, lse)
+            torch.cuda.synchronize()
+        counts = {n: attn.launches[n] - before[n] for n in attn.launches}
+        pieces = RN * (RN + 1) // 2 if causal else RN * RN
+        check(counts == {"flash_fwd": 0, "flash_fwd_lse": pieces,
+                         "flash_bwd_dq": pieces, "flash_bwd_dkv": pieces},
+              f"ring body causal={causal}: launches {counts}, want {pieces} "
+              "each of K2, K4 and K3")
+        errs_ring = {
+            "out": close(out, ref_out, TOL["bfloat16"]),
+            "lse": close(lse, ref_lse, LSE_TOL),
+            "dq": close(dq, ref_dq, GRAD_TOL["bfloat16"]),
+            "dk": close(dk, ref_dk, GRAD_TOL["bfloat16"]),
+            "dv": close(dv, ref_dv, GRAD_TOL["bfloat16"]),
+        }
+        with torch.no_grad():    # device time: each from a CUDA graph
+            fwd_ms = graph_ms(ring_fwd, reps=3)
+            o_l = ring_fwd()
+            bwd_ms = graph_ms(lambda: ring_bwd(*o_l), reps=3)
+            whole_fwd = graph_ms(lambda: attn._flash_fwd_cuda(
+                q, k, v, causal, with_lse=True), reps=3)
+            whole_bwd = graph_ms(lambda: attn._flash_bwd_cuda(
+                q, k, v, ref_out, ref_lse, do, causal), reps=3)
+        ring_rows[causal] = dict(launches=counts, errs=errs_ring,
+                                 fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+        log(f"[{card}] ring body B={RB} T={RT} ({RN} chunks of {tl}) H={lh} "
+            f"Hkv={lkv} D={ld} bf16 causal={causal}: launches {counts}; "
+            "max|ring-whole| " + ", ".join(
+                f"{n} {e:.3e}" for n, (e, _) in errs_ring.items())
+            + f" (bounds out {TOL['bfloat16']}, lse {LSE_TOL}, grads "
+            f"{GRAD_TOL['bfloat16']} as atol + rtol|whole|); device ms (graph "
+            f"replay), all ranks' pieces and merges on this card: forward "
+            f"{fwd_ms:.4f} (whole-sequence "
+            f"K2 {whole_fwd:.4f}), backward {bwd_ms:.4f} (whole-sequence K4 + "
+            f"K3 {whole_bwd:.4f})")
+        for n, (e, nbad) in errs_ring.items():
+            check(nbad == 0, f"ring body causal={causal} {n}: {nbad} "
+                  f"elements outside the bound, max err {e:.3e}")
+    del q, k, v, do, ref_out, ref_lse, ref_dq, ref_dk, ref_dv, out, lse, dq
+    del dk, dv, o_l, qc, kc, vc, dc
+    torch.cuda.empty_cache()
+
+    # (b) The mesh path at full width on a world-size-1 NCCL group (its
+    # bootstrap on the loopback interface).
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    mesh = single_device_mesh("cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"mesh group: {dist.get_backend()} of {dist.get_world_size()}")
+    L = ltrain_cfg.num_layers
+    want_mesh = {"flash_fwd": 0, "flash_fwd_lse": L, "flash_bwd_dkv": L,
+                 "flash_bwd_dq": L}
+    init = llama.init_params(ltrain_cfg, torch.Generator().manual_seed(0), dev)
+    mesh_runs, mesh_launches = {}, dict.fromkeys(attn.launches, 0)
+    # the first compiles (the default; the model does not communicate on a
+    # mesh of one rank), the others run eagerly (backend=None): each
+    # compile would take as long as the first
+    for label, impl, steps, pm, backend in (
+            ("mesh", "flash", 6, None, "auto"),
+            ("mesh ring", "ring", 6, None, None),
+            ("mesh ulysses", "ulysses", 6, None, None),
+            ("mesh pipeline M=2", "flash", 1, 2, None)):
+        cfg = dataclasses.replace(ltrain_cfg, attention_impl=impl)
+        opt = opt_cfg.build()
+        state = create_train_state(cfg, opt, params=copy.deepcopy(init),
+                                   mesh=mesh)
+        step = make_train_step(cfg, opt, mesh, pipeline_microbatches=pm,
+                               backend=backend)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, run = timed_steps(step, state, lbatch, steps)
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        for c in run["per_step"]:
+            for n in c:
+                mesh_launches[n] += c[n]
+        mesh_runs[label] = run
+        losses = run["losses"]
+        # one step alone is its first (the allocator's growth included)
+        step_ms = float(np.median(run["step_s"][1:] or run["step_s"])) * 1e3
+        B, T = LLAMA_TRAIN_BATCH
+        kind = "compiled" if backend else "eager"
+        log(f"[{card}] train step llama-1b L={L} B={B} T={T} remat dots on "
+            f"the world-size-1 mesh, {label}, {kind}: losses "
+            + " ".join(f"{x:.4f}" for x in losses) + f"; grad norms "
+            + " ".join(f"{x:.4f}" for x in run["norms"])
+            + f"; {'median' if steps > 1 else 'first step'} {step_ms:.2f} ms "
+            f"a step (step 0 {run['step_s'][0]:.1f} s), "
+            f"{B * T / step_ms * 1e3:.0f} "
+            f"tokens/s, peak memory {run['peak_gb']:.2f} GB; launches per "
+            f"step {run['per_step'][0]}")
+        check(all(math.isfinite(x) for x in losses + run["norms"]),
+              f"{label}: non-finite loss or norm")
+        check(steps == 1 or losses[-1] < losses[0],
+              f"{label}: loss did not fall: {losses}")
+        check(all(c == want_mesh for c in run["per_step"]),
+              f"{label} launches {run['per_step']}, want {want_mesh}")
+        rel = abs(losses[0] - ltrain["losses"][0]) / abs(ltrain["losses"][0])
+        check(rel <= 2e-3, f"{label}: first loss {losses[0]} against phase "
+              f"9's {ltrain['losses'][0]}: rel {rel:.3e} > 2e-3")
+        log(f"{label}: first loss {losses[0]:.6f}, phase 9's compiled step "
+            f"{ltrain['losses'][0]:.6f} on the same state and batch: rel "
+            f"{rel:.3e} (bound 2e-3)")
+        if label == "mesh":
+            before = attn.launches["flash_fwd"]
+            eval_loss = float(make_eval_step(cfg, mesh)(state["params"], lbatch))
+            mesh_eval_launches = attn.launches["flash_fwd"] - before
+            check(math.isfinite(eval_loss) and mesh_eval_launches == L,
+                  f"mesh eval step: loss {eval_loss}, {mesh_eval_launches} K1 "
+                  f"launches, want {L}")
+            log(f"mesh eval step: loss {eval_loss:.4f}, K1 launches "
+                f"{mesh_eval_launches}")
+        del state, step, opt
+        release()
+    del init
+    dist.destroy_process_group()
+    base_ms = float(np.median(ltrain["step_s"][1:])) * 1e3
+    log(f"[{card}] llama-1b phase 9 beside the mesh step: compiled "
+        f"{base_ms:.2f} ms a step (peak {ltrain['peak_gb']:.2f} GB), eager "
+        f"{float(np.median(ltrain['eager']['step_s'][1:])) * 1e3:.2f} ms "
+        f"(peak {ltrain['eager']['peak_gb']:.2f} GB)")
+    ring_launches = {n: sum(r["launches"][n] for r in ring_rows.values())
+                     for n in attn.launches}
+    phase_done(13)
+
     # ------------------------------------------------------ the kernels line
     def kernel_row(name, line, src, launches, err, ms, plain, bound, lib_ms):
         return {
@@ -1598,10 +1827,11 @@ def main() -> int:
     # the main paths, "launches_by_path" each.
     row = kernel_row("flash_fwd", 73, "flash_fwd.cu",
                      main_launches + llama_k1_launches + serving_launches
-                     + eval_launches, case_err("entry"), k1["ms"],
-                     k1["plain_ms"], k1["bound"], k1["sdpa_ms"])
+                     + eval_launches + mesh_eval_launches, case_err("entry"),
+                     k1["ms"], k1["plain_ms"], k1["bound"], k1["sdpa_ms"])
     row["launches_by_path"] = {"gpt2": main_launches, "llama": llama_k1_launches,
-                               "serving": serving_launches, "eval": eval_launches}
+                               "serving": serving_launches, "eval": eval_launches,
+                               "mesh_eval": mesh_eval_launches}
     row["llama1b"] = kernel_row(
         "flash_fwd", 73, "flash_fwd.cu", llama_k1_launches,
         case_err("llama1b-serve"), k1_llama["ms"], k1_llama["plain_ms"],
@@ -1622,10 +1852,15 @@ def main() -> int:
                 name, line, src, tr["launches"][name],
                 max(train_errs[case][e] for e in errs_of), ms[name],
                 plain[name], bounds[name], lib[name])
+        check(ring_launches[name] > 0 and mesh_launches[name] > 0,
+              f"{name} was not launched on the ring body or the mesh path")
         row = dict(rows["gpt2"])
-        row["launches"] = rows["gpt2"]["launches"] + rows["llama"]["launches"]
+        row["launches"] = (rows["gpt2"]["launches"] + rows["llama"]["launches"]
+                           + ring_launches[name] + mesh_launches[name])
         row["launches_by_path"] = {"gpt2": rows["gpt2"]["launches"],
-                                   "llama": rows["llama"]["launches"]}
+                                   "llama": rows["llama"]["launches"],
+                                   "ring": ring_launches[name],
+                                   "mesh": mesh_launches[name]}
         row["llama1b"] = rows["llama"]
         kernels.append(row)
     log(f"total {time.perf_counter() - t_start:.1f} s")

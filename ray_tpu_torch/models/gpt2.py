@@ -12,6 +12,16 @@ parameters, each weight cast to the activation dtype where it is used.
 Training goes through ``loss_fn`` (vocabulary-chunked cross entropy over
 ``forward_features``), with each block checkpointed by ``remat_policy``.
 
+With ``mesh=`` the functions are the body of an SPMD program over the
+mesh's ranks (``parallel/``): tokens and batch are this rank's shard
+(``sharding.shard_batch_spec``: rows over data and fsdp, the sequence over
+seq), outputs are that shard's, the loss is the whole batch's on every
+rank, and ``params`` are DTensors placed by ``param_axes`` (or plain
+tensors, the whole value on every rank), gathered where they are used.
+Attention over a sharded sequence is ring or Ulysses attention
+(``attention_impl``); ``forward_pipelined`` runs the blocks as a GPipe
+loop over the "stage" axis.
+
 The functions take ``params`` as anything indexable by the JAX names: a
 ``GPT2`` module or a nested dict of tensors.
 """
@@ -28,14 +38,16 @@ from torch import nn
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.models import common
-from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.xent import chunked_softmax_xent
 from ray_tpu_torch.parallel.moe import (
     MoEConfig,
     init_moe_params,
     moe_layer,
+    moe_param_axes,
     moe_param_shapes,
 )
+from ray_tpu_torch.parallel.pipeline import pipeline_apply
+
 
 BLOCK_PARAMS = (
     "ln1_g", "ln1_b", "qkv_w", "qkv_b", "proj_w", "proj_b",
@@ -53,7 +65,8 @@ class GPT2Config:
     mlp_ratio: int = 4
     dtype: torch.dtype = torch.bfloat16        # activation dtype
     param_dtype: torch.dtype = torch.float32
-    attention_impl: str = "auto"     # auto | xla | flash | flash_interpret
+    # auto | xla | flash | flash_interpret | ring | ulysses
+    attention_impl: str = "auto"
     # Activation checkpointing of each block in training (forward_features).
     # "dots": keep the outputs of the projections (matrix products with no
     # batch dims) and of the flash forward (out, lse), recompute the
@@ -62,19 +75,13 @@ class GPT2Config:
     # included, in the backward.
     remat: bool = True
     remat_policy: str = "dots"
-    # Mesh option of the JAX config: ring/ulysses raise.
-    seq_axis: str = "seq"
+    seq_axis: str = "seq"            # mesh axis for ring/ulysses
     moe: Optional[MoEConfig] = None  # routed experts in place of each MLP
 
     def __post_init__(self):
         if self.remat_policy not in common.POLICIES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}; "
                              f"one of {common.POLICIES}")
-        if self.attention_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention_impl={self.attention_impl!r} needs the parallel "
-                "layer, which is not ported yet"
-            )
 
     @property
     def head_dim(self) -> int:
@@ -123,6 +130,35 @@ def param_shapes(config: GPT2Config) -> Dict[str, Any]:
         "ln_f_g": (E,),
         "ln_f_b": (E,),
     }
+
+
+def param_axes(config: GPT2Config) -> Dict[str, Any]:
+    """Logical axis names per parameter (see ``sharding.DEFAULT_RULES``),
+    the JAX ``param_axes``'s tree."""
+    axes = {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "blocks": {
+            "ln1_g": ("stage", "norm"),
+            "ln1_b": ("stage", "norm"),
+            "qkv_w": ("stage", "embed", None, "heads", "head_dim"),
+            "qkv_b": ("stage", None, "heads", "head_dim"),
+            "proj_w": ("stage", "heads", "head_dim", "embed"),
+            "proj_b": ("stage", "norm"),
+            "ln2_g": ("stage", "norm"),
+            "ln2_b": ("stage", "norm"),
+            "fc_w": ("stage", "embed", "mlp"),
+            "fc_b": ("stage", "mlp"),
+            "out_w": ("stage", "mlp", "embed"),
+            "out_b": ("stage", "norm"),
+        },
+        "ln_f_g": ("norm",),
+        "ln_f_b": ("norm",),
+    }
+    if config.moe is not None:
+        axes["blocks"]["moe"] = moe_param_axes(
+            num_layers=config.num_layers, config=config.moe)
+    return axes
 
 
 def init_params(config: GPT2Config, generator: Optional[torch.Generator] = None,
@@ -238,12 +274,12 @@ def _attn_residual(layer, x, attn):
     return x + attn + layer["proj_b"].to(x.dtype)
 
 
-def _mlp_residual(config: GPT2Config, layer, x, noise=None):
+def _mlp_residual(config: GPT2Config, layer, x, noise=None, mesh=None):
     """ln2 + MLP (or MoE) + residual. Returns (x, aux loss); the aux loss is
     MoE's (0.0 for the dense MLP); ``noise`` is the router's jitter noise."""
     h = _layer_norm(x, layer["ln2_g"], layer["ln2_b"])
     if config.moe is not None:
-        h, aux = moe_layer(layer["moe"], h, config.moe, noise=noise)
+        h, aux = moe_layer(layer["moe"], h, config.moe, noise=noise, mesh=mesh)
         return x + h, aux
     h = torch.einsum("bte,em->btm", h, layer["fc_w"].to(h.dtype))
     # jax.nn.gelu's default is the tanh approximation
@@ -252,16 +288,16 @@ def _mlp_residual(config: GPT2Config, layer, x, noise=None):
     return x + h + layer["out_b"].to(h.dtype), 0.0
 
 
-def _block(config: GPT2Config, x, layer, noise=None):
+def _block(config: GPT2Config, mesh, x, layer, noise=None):
     """One transformer block. x: [B, T, E]; layer: one slice of the stacked
     block parameters; ``noise`` ([B*T, experts] or None) is the MoE
     router's jitter noise, an input, so a re-run under checkpointing adds
     the same noise."""
     h = _layer_norm(x, layer["ln1_g"], layer["ln1_b"])
     q, k, v = _qkv(layer, h)
-    attn = attention(q, k, v, causal=True, impl=config.attention_impl)
+    attn = common.attention_dispatch(config, q, k, v, mesh)
     x = _attn_residual(layer, x, attn)
-    return _mlp_residual(config, layer, x, noise)
+    return _mlp_residual(config, layer, x, noise, mesh)
 
 
 def _layer(params, i: int) -> Dict[str, Any]:
@@ -272,20 +308,19 @@ def _layer(params, i: int) -> Dict[str, Any]:
     return layer
 
 
-def forward_features(params, tokens: torch.Tensor, config: GPT2Config,
-                     router_noise: Optional[torch.Tensor] = None):
-    """tokens [B, T] int -> (final-trunk features [B, T, E], aux loss).
-    Under autograd each block runs under ``config.remat``/``remat_policy``;
-    the loss path consumes the features directly (``ops/xent.py``), so the
-    [B, T, V] logits never materialise. ``router_noise``
-    (``common.router_noise``'s [L, B*T, experts]) feeds the MoE router's
-    jitter."""
-    B, T = tokens.shape
+def _embed(params, tokens: torch.Tensor, config: GPT2Config, mesh):
+    T = tokens.shape[1]
+    off = common.seq_offset(mesh, T)
     x = params["wte"][tokens].to(config.dtype)
-    x = x + params["wpe"][:T][None].to(config.dtype)
+    return x + params["wpe"][off:off + T][None].to(config.dtype)
+
+
+def _trunk(params, tokens: torch.Tensor, config: GPT2Config,
+           router_noise: Optional[torch.Tensor], mesh):
+    x = _embed(params, tokens, config, mesh)
     aux = 0.0
-    block = common.checkpointed(functools.partial(_block, config),
-                               config.remat, config.remat_policy)
+    block = common.checkpointed(functools.partial(_block, config, mesh),
+                                config.remat, config.remat_policy)
     for i, layer in enumerate(common.layers(params["blocks"],
                                             config.num_layers)):
         noise = None if router_noise is None else router_noise[i]
@@ -295,12 +330,63 @@ def forward_features(params, tokens: torch.Tensor, config: GPT2Config,
     return x, aux
 
 
-def forward(params, tokens: torch.Tensor, config: GPT2Config,
-            router_noise: Optional[torch.Tensor] = None):
-    """tokens [B, T] int -> (logits [B, T, V] f32, aux loss)."""
-    x, aux = forward_features(params, tokens, config, router_noise)
+def forward_features(params, tokens: torch.Tensor, config: GPT2Config,
+                     router_noise: Optional[torch.Tensor] = None, mesh=None):
+    """tokens [B, T] int -> (final-trunk features [B, T, E], aux loss).
+    Under autograd each block runs under ``config.remat``/``remat_policy``;
+    the loss path consumes the features directly (``ops/xent.py``), so the
+    [B, T, V] logits never materialise. ``router_noise``
+    (``common.router_noise``'s [L, B*T, experts], over the whole batch's
+    tokens) feeds the MoE router's jitter."""
+    return _trunk(common.mesh_params(params, mesh, False), tokens, config,
+                  router_noise, mesh)
+
+
+def _head(params, x):
     logits = torch.einsum("bte,ve->btv", x, params["wte"].to(x.dtype))
-    return logits.to(torch.float32), aux
+    return logits.to(torch.float32)
+
+
+def forward(params, tokens: torch.Tensor, config: GPT2Config,
+            router_noise: Optional[torch.Tensor] = None, mesh=None):
+    """tokens [B, T] int -> (logits [B, T, V] f32, aux loss)."""
+    params = common.mesh_params(params, mesh, False)
+    x, aux = _trunk(params, tokens, config, router_noise, mesh)
+    return _head(params, x), aux
+
+
+def _pipelined(params, tokens, config: GPT2Config, mesh, num_microbatches):
+    x = _embed(params, tokens, config, mesh)
+    block = common.checkpointed(functools.partial(_block, config, mesh),
+                                config.remat, config.remat_policy)
+    collect_aux = config.moe is not None
+
+    def apply_stage(local_blocks, mb):
+        aux = 0.0
+        n = local_blocks["ln1_g"].shape[0]
+        for layer in common.layers(local_blocks, n):
+            mb, a = block(mb, layer)
+            aux = aux + a
+        return (mb, aux) if collect_aux else mb
+
+    res = pipeline_apply(params["blocks"], x, mesh=mesh,
+                         apply_stage=apply_stage,
+                         num_microbatches=num_microbatches,
+                         collect_aux=collect_aux)
+    x, aux = res if collect_aux else (res, 0.0)
+    x = _layer_norm(x, params["ln_f_g"], params["ln_f_b"])
+    return _head(params, x), aux
+
+
+def forward_pipelined(params, tokens: torch.Tensor, config: GPT2Config,
+                      mesh=None, num_microbatches: int = 4):
+    """Pipeline-parallel forward: the blocks run under the GPipe microbatch
+    loop (``parallel.pipeline.pipeline_apply``) over the "stage" mesh axis,
+    each stage its [L/S] slice of the stacked blocks; embedding and head run
+    outside the pipe, on every stage. MoE models carry the router's aux loss
+    across the microbatch loop. Returns (logits [B, T, V] f32, aux)."""
+    return _pipelined(common.mesh_params(params, mesh, True), tokens, config,
+                      mesh, num_microbatches)
 
 
 def init_kv_cache(config: GPT2Config, batch: int, max_len: int, dtype=None,
@@ -370,19 +456,25 @@ def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
 
 def loss_fn(params, batch: Dict[str, Any], config: GPT2Config,
             pipeline_microbatches: Optional[int] = None,
-            router_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+            router_noise: Optional[torch.Tensor] = None,
+            mesh=None) -> torch.Tensor:
     """Next-token cross entropy plus the MoE aux loss, an f32 scalar. batch:
     {"tokens": [B, T+1]} or {"inputs": [B, T], "targets": [B, T]}, with an
     optional "mask" [B, T] of weights. Tensors or numpy arrays; they move to
-    the params' device. ``router_noise`` feeds the MoE router's jitter. The
-    pipelined path needs the parallel layer, which is not ported yet."""
-    if pipeline_microbatches:
-        raise NotImplementedError(
-            "pipeline_microbatches needs the parallel layer, which is not "
-            "ported yet")
+    the params' device. ``router_noise`` feeds the MoE router's jitter
+    (unpipelined path only, as in JAX). With ``pipeline_microbatches`` the
+    blocks run as ``forward_pipelined``'s GPipe loop and the loss is the
+    reference's log-softmax over the whole logits."""
+    params = common.mesh_params(params, mesh, bool(pipeline_microbatches))
     inputs, targets, mask = common.next_token_batch(batch, params["wte"].device)
-    x, aux = forward_features(params, inputs, config, router_noise)
-    return chunked_softmax_xent(x, params["wte"], targets, mask) + aux
+    if pipeline_microbatches:
+        logits, aux = _pipelined(params, inputs, config, mesh,
+                                 pipeline_microbatches)
+        mean = common.logits_nll(logits, targets, mask)
+    else:
+        x, aux = _trunk(params, inputs, config, router_noise, mesh)
+        mean = chunked_softmax_xent(x, params["wte"], targets, mask)
+    return common.mesh_loss(mean, targets, mask, aux, mesh)
 
 
 def count_params(params: nn.Module) -> int:

@@ -16,7 +16,11 @@ head h // (H / KV) for query head h in place, the head mapping of JAX's
 groups the query heads per kv head over the [L, B, S, KV, D] cache.
 
 The functions take ``params`` as anything indexable by the JAX names: a
-``Llama`` module or a nested dict of tensors.
+``Llama`` module or a nested dict of tensors. With ``mesh=`` they are the
+SPMD bodies of ``models/gpt2.py``'s contract: this rank's shard of the
+batch in and out, the parameters gathered where they are used, RoPE at
+the shard's absolute positions; ring and Ulysses attention carry the Hkv
+kv heads (``parallel/ring_attention.py``).
 """
 from __future__ import annotations
 
@@ -31,14 +35,15 @@ from torch import nn
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.models import common
-from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.xent import chunked_softmax_xent
 from ray_tpu_torch.parallel.moe import (
     MoEConfig,
     init_moe_params,
     moe_layer,
+    moe_param_axes,
     moe_param_shapes,
 )
+from ray_tpu_torch.parallel.pipeline import pipeline_apply
 
 @dataclass(frozen=True)
 class LlamaConfig:
@@ -53,25 +58,18 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16        # activation dtype
     param_dtype: torch.dtype = torch.float32
-    attention_impl: str = "auto"     # auto | xla | flash | flash_interpret
+    # auto | xla | flash | flash_interpret | ring | ulysses
+    attention_impl: str = "auto"
     # Activation checkpointing of each block in training: "full" keeps only
     # the block's inputs; anything else is "dots" (JAX's _remat_policy),
     # which also keeps the flash forward's (out, lse), so the forward kernel
     # runs once per layer per step.
     remat: bool = True
     remat_policy: str = "dots"
-    # Mesh option of the JAX config: ring/ulysses raise.
-    seq_axis: str = "seq"
+    seq_axis: str = "seq"            # mesh axis for ring/ulysses
     # Mixtral-style MoE in place of the SwiGLU MLP (MoEConfig(activation=
     # "swiglu") for the Mixtral shape).
     moe: Optional[MoEConfig] = None
-
-    def __post_init__(self):
-        if self.attention_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention_impl={self.attention_impl!r} needs the parallel "
-                "layer, which is not ported yet"
-            )
 
     @property
     def head_dim(self) -> int:
@@ -136,6 +134,35 @@ def param_shapes(config: LlamaConfig) -> Dict[str, Any]:
         blocks.update(w_gate=(L, E, M), w_up=(L, E, M), w_down=(L, M, E))
     return {"wte": (V, E), "blocks": blocks, "norm_f": (E,),
             "lm_head": (V, E)}
+
+
+def param_axes(config: LlamaConfig) -> Dict[str, Any]:
+    """Logical axis names per parameter (see ``sharding.DEFAULT_RULES``),
+    the JAX ``param_axes``'s tree. kv-head dims use the "kv" axis
+    (replicated by default: GQA kv heads often do not divide the tensor
+    axis; override the rules to shard them)."""
+    axes = {
+        "wte": ("vocab", "embed"),
+        "blocks": {
+            "attn_norm": ("stage", "norm"),
+            "wq": ("stage", "embed", "heads", "head_dim"),
+            "wk": ("stage", "embed", "kv", "head_dim"),
+            "wv": ("stage", "embed", "kv", "head_dim"),
+            "wo": ("stage", "heads", "head_dim", "embed"),
+            "mlp_norm": ("stage", "norm"),
+            "w_gate": ("stage", "embed", "mlp"),
+            "w_up": ("stage", "embed", "mlp"),
+            "w_down": ("stage", "mlp", "embed"),
+        },
+        "norm_f": ("norm",),
+        "lm_head": ("vocab", "embed"),
+    }
+    if config.moe is not None:
+        for name in ("w_gate", "w_up", "w_down"):
+            del axes["blocks"][name]
+        axes["blocks"]["moe"] = moe_param_axes(
+            num_layers=config.num_layers, config=config.moe)
+    return axes
 
 
 def init_params(config: LlamaConfig,
@@ -261,12 +288,12 @@ def _qkv(config: LlamaConfig, layer, x, pos):
             v)
 
 
-def _ffn(config: LlamaConfig, layer, x, noise=None):
+def _ffn(config: LlamaConfig, layer, x, noise=None, mesh=None):
     """mlp_norm + SwiGLU MLP (or routed MoE) + residual -> (x, aux loss);
     ``noise`` is the router's jitter noise."""
     h = _rms_norm(x, layer["mlp_norm"], config.rms_eps)
     if config.moe is not None:
-        h, aux = moe_layer(layer["moe"], h, config.moe, noise=noise)
+        h, aux = moe_layer(layer["moe"], h, config.moe, noise=noise, mesh=mesh)
         return x + h, aux
     gate = torch.einsum("bte,em->btm", h, layer["w_gate"].to(h.dtype))
     up = torch.einsum("bte,em->btm", h, layer["w_up"].to(h.dtype))
@@ -275,13 +302,13 @@ def _ffn(config: LlamaConfig, layer, x, noise=None):
     return x + h, 0.0
 
 
-def _block(config: LlamaConfig, x, layer, pos, noise=None):
+def _block(config: LlamaConfig, mesh, x, layer, pos, noise=None):
     """One decoder block -> (x, aux). x: [B, T, E], pos: [B, T] absolute;
     ``noise`` ([B*T, experts] or None) is the MoE router's jitter noise."""
     q, k, v = _qkv(config, layer, x, pos)
-    attn = attention(q, k, v, causal=True, impl=config.attention_impl)
+    attn = common.attention_dispatch(config, q, k, v, mesh)
     x = x + torch.einsum("bthd,hde->bte", attn, layer["wo"].to(x.dtype))
-    return _ffn(config, layer, x, noise)
+    return _ffn(config, layer, x, noise, mesh)
 
 
 def _layer(params, i: int) -> Dict[str, Any]:
@@ -297,18 +324,20 @@ def _policy(config: LlamaConfig) -> str:
     return "full" if config.remat_policy == "full" else "dots"
 
 
-def forward_features(params, tokens: torch.Tensor, config: LlamaConfig,
-                     router_noise: Optional[torch.Tensor] = None):
-    """tokens [B, T] int -> (final-trunk features [B, T, E], aux loss).
-    Under autograd each block runs under ``config.remat``; the loss path
-    consumes the features directly, so the [B, T, V] logits never
-    materialise. ``router_noise`` (``common.router_noise``'s [L, B*T,
-    experts]) feeds the MoE router's jitter."""
+def _positions(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """[B, T] absolute positions of this rank's tokens."""
     B, T = tokens.shape
+    off = common.seq_offset(mesh, T)
+    return torch.arange(off, off + T, device=tokens.device)[None, :].expand(
+        B, T)
+
+
+def _trunk(params, tokens: torch.Tensor, config: LlamaConfig,
+           router_noise: Optional[torch.Tensor], mesh):
     x = params["wte"][tokens].to(config.dtype)
-    pos = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
+    pos = _positions(tokens, mesh)
     aux = 0.0
-    block = common.checkpointed(functools.partial(_block, config),
+    block = common.checkpointed(functools.partial(_block, config, mesh),
                                 config.remat, _policy(config))
     for i, layer in enumerate(common.layers(params["blocks"],
                                             config.num_layers)):
@@ -319,17 +348,64 @@ def forward_features(params, tokens: torch.Tensor, config: LlamaConfig,
     return x, aux
 
 
-def forward(params, tokens: torch.Tensor, config: LlamaConfig,
-            router_noise: Optional[torch.Tensor] = None):
-    """tokens [B, T] int -> (logits [B, T, V] f32, MoE aux loss)."""
-    x, aux = forward_features(params, tokens, config, router_noise)
+def forward_features(params, tokens: torch.Tensor, config: LlamaConfig,
+                     router_noise: Optional[torch.Tensor] = None, mesh=None):
+    """tokens [B, T] int -> (final-trunk features [B, T, E], aux loss).
+    Under autograd each block runs under ``config.remat``; the loss path
+    consumes the features directly, so the [B, T, V] logits never
+    materialise. ``router_noise`` (``common.router_noise``'s [L, B*T,
+    experts], over the whole batch's tokens) feeds the MoE router's
+    jitter."""
+    return _trunk(common.mesh_params(params, mesh, False), tokens, config,
+                  router_noise, mesh)
+
+
+def _head(params, x):
     logits = torch.einsum("bte,ve->btv", x, params["lm_head"].to(x.dtype))
-    return logits.to(torch.float32), aux
+    return logits.to(torch.float32)
 
 
-def forward_pipelined(*args, **kwargs):
-    raise NotImplementedError(
-        "forward_pipelined needs the parallel layer, which is not ported yet")
+def forward(params, tokens: torch.Tensor, config: LlamaConfig,
+            router_noise: Optional[torch.Tensor] = None, mesh=None):
+    """tokens [B, T] int -> (logits [B, T, V] f32, MoE aux loss)."""
+    params = common.mesh_params(params, mesh, False)
+    x, aux = _trunk(params, tokens, config, router_noise, mesh)
+    return _head(params, x), aux
+
+
+def _pipelined(params, tokens, config: LlamaConfig, mesh, num_microbatches):
+    x = params["wte"][tokens].to(config.dtype)
+    pos = _positions(tokens, mesh)
+    block = common.checkpointed(functools.partial(_block, config, mesh),
+                                config.remat, _policy(config))
+    collect_aux = config.moe is not None
+
+    def apply_stage(local_blocks, mb):
+        # microbatches split the batch dim; positions are the same per row
+        mb_pos, aux = pos[:mb.shape[0]], 0.0
+        n = local_blocks["attn_norm"].shape[0]
+        for layer in common.layers(local_blocks, n):
+            mb, a = block(mb, layer, mb_pos)
+            aux = aux + a
+        return (mb, aux) if collect_aux else mb
+
+    res = pipeline_apply(params["blocks"], x, mesh=mesh,
+                         apply_stage=apply_stage,
+                         num_microbatches=num_microbatches,
+                         collect_aux=collect_aux)
+    x, aux = res if collect_aux else (res, 0.0)
+    x = _rms_norm(x, params["norm_f"], config.rms_eps)
+    return _head(params, x), aux
+
+
+def forward_pipelined(params, tokens: torch.Tensor, config: LlamaConfig,
+                      mesh=None, num_microbatches: int = 4):
+    """Pipeline-parallel forward over the "stage" mesh axis (the GPipe
+    microbatch loop, ``parallel.pipeline.pipeline_apply``); embedding and
+    head outside the pipe. MoE models carry the router's aux loss across
+    the microbatch loop. Returns (logits [B, T, V] f32, aux)."""
+    return _pipelined(common.mesh_params(params, mesh, True), tokens, config,
+                      mesh, num_microbatches)
 
 
 def init_kv_cache(config: LlamaConfig, batch: int, max_len: int, dtype=None,
@@ -389,18 +465,21 @@ def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
 
 def loss_fn(params, batch: Dict[str, Any], config: LlamaConfig,
             pipeline_microbatches: Optional[int] = None,
-            router_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+            router_noise: Optional[torch.Tensor] = None,
+            mesh=None) -> torch.Tensor:
     """Next-token cross entropy over the untied ``lm_head`` plus the MoE aux
-    loss; the batch contract of ``gpt2.loss_fn``. ``router_noise`` feeds
-    the MoE router's jitter. The pipelined path needs the parallel layer,
-    which is not ported yet."""
-    if pipeline_microbatches:
-        raise NotImplementedError(
-            "pipeline_microbatches needs the parallel layer, which is not "
-            "ported yet")
+    loss; the batch and mesh contract of ``gpt2.loss_fn``. ``router_noise``
+    feeds the MoE router's jitter (unpipelined path only, as in JAX)."""
+    params = common.mesh_params(params, mesh, bool(pipeline_microbatches))
     inputs, targets, mask = common.next_token_batch(batch, params["wte"].device)
-    x, aux = forward_features(params, inputs, config, router_noise)
-    return chunked_softmax_xent(x, params["lm_head"], targets, mask) + aux
+    if pipeline_microbatches:
+        logits, aux = _pipelined(params, inputs, config, mesh,
+                                 pipeline_microbatches)
+        mean = common.logits_nll(logits, targets, mask)
+    else:
+        x, aux = _trunk(params, inputs, config, router_noise, mesh)
+        mean = chunked_softmax_xent(x, params["lm_head"], targets, mask)
+    return common.mesh_loss(mean, targets, mask, aux, mesh)
 
 
 def count_params(params: nn.Module) -> int:

@@ -24,6 +24,11 @@ Counterpart of ``ray_tpu/ops/attention.py``:
   from a kernel to a plain version.
 - ``attention``: the dispatcher.
 
+The three custom ops carry DTensor strategies (the end of this module): on
+DTensors sharded on the batch or the heads each runs locally on each
+rank's shard. A sequence sharded over the mesh goes through
+``parallel/ring_attention.py`` instead, whose pieces are these ops.
+
 Shapes follow [batch, seq, heads, head_dim] throughout; lse is
 [batch, heads, seq_q] f32.
 """
@@ -558,3 +563,50 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "auto",
         return flash_attention(q, k, v, causal, block_q, block_k,
                                interpret=impl == "flash_interpret")
     raise ValueError(f"unknown attention impl {impl}")
+
+
+# ------------------------------------------------ DTensor sharding rules
+
+def _register_dtensor_strategies() -> None:
+    """DTensor strategies of the three custom ops, so that K1, K2 and
+    K4+K3 run on DTensors: every tensor replicated, or all sharded alike on
+    the batch dim, or on the heads dim (q/k/v/out/dq/dk/dv dim 2, lse dim
+    1) when q and k have as many heads (a GQA group must not be split).
+    Each is local: the kernel runs on each rank's shard. A
+    sequence-sharded input has no strategy here; it goes through
+    ``parallel/ring_attention.py``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    def strategies(q, k, n_in, outs):
+        """(output placements, input placements) lists: ``n_in`` tensor
+        inputs (lse the 5th when present) and outputs shaped by ``outs``
+        ("x" for [B, T, H, D], "lse" for [B, H, T])."""
+        rep = ([Replicate()] * len(outs), [Replicate()] * n_in)
+        out = [rep]
+        dims = [(0, 0)]
+        if q.shape[2] == k.shape[2]:
+            dims.append((2, 1))
+        for x_dim, lse_dim in dims:
+            place = {"x": Shard(x_dim), "lse": Shard(lse_dim)}
+            ins = [Shard(x_dim)] * n_in
+            if n_in == 6:
+                ins[4] = Shard(lse_dim)
+            out.append(([place[o] for o in outs], ins))
+        return [(o, i + [None, None, None, None]) for o, i in out]
+
+    @register_sharding(torch.ops.ray_tpu_torch.flash_fwd.default)
+    def _fwd(q, k, v, causal, block_q, block_k, interpret):
+        return strategies(q, k, 3, ["x"])
+
+    @register_sharding(torch.ops.ray_tpu_torch.flash_fwd_lse.default)
+    def _fwd_lse(q, k, v, causal, block_q, block_k, interpret):
+        return strategies(q, k, 3, ["x", "lse"])
+
+    @register_sharding(torch.ops.ray_tpu_torch.flash_bwd.default)
+    def _bwd(q, k, v, out, lse, do, causal, block_q, block_k, interpret):
+        return [(o, i[:6] + [None, None, None, None])
+                for o, i in strategies(q, k, 6, ["x", "x", "x"])]
+
+
+_register_dtensor_strategies()

@@ -1,12 +1,19 @@
-"""Mixture-of-Experts on one card: top-k routing with capacity or dropless.
+"""Mixture-of-Experts: top-k routing with capacity or dropless, and the
+expert mesh axis.
 
-Counterpart of ``ray_tpu/parallel/moe.py`` without a mesh: ``MoEConfig``,
-``init_moe_params`` and ``moe_layer`` in the GShard/Switch formulation.
-Routing builds a dispatch one-hot [tokens, experts, capacity] and the
-dispatch and combine are einsums against it. In the JAX package those
-einsums become all-to-alls once an "expert" mesh axis shards them; here
-every expert lives on the one card, so they are plain products. The
-expert mesh axis (and ``moe_param_axes``) waits for the parallel layer.
+Counterpart of ``ray_tpu/parallel/moe.py``: ``MoEConfig``,
+``init_moe_params``, ``moe_param_axes`` and ``moe_layer`` in the
+GShard/Switch formulation. Routing builds a dispatch one-hot [tokens,
+experts, capacity] and the dispatch and combine are einsums against it.
+
+On a mesh (``mesh=``) the layer is the same function of the whole batch as
+the reference's on its mesh. The expert weights are ``Shard`` over the
+"expert" axis, and each rank runs its experts' slice of the dispatch
+tensor; the combine's sum over experts becomes a sum over the expert
+axis. The capacity queues are positions in the whole batch's token order,
+so the layer first gathers the tokens of the batch shards (the data, fsdp
+and seq axes) and routes them all, alike on every rank; after the combine
+each rank keeps its own tokens' rows. The aux loss is the whole batch's.
 
 Two hazards of the translation, handled here:
 
@@ -25,6 +32,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ray_tpu_torch.parallel import _collectives
+from ray_tpu_torch.parallel.mesh import axis_index
+from ray_tpu_torch.parallel.sharding import local_shard, shard_batch_spec
 
 _ACTIVATIONS = ("gelu", "swiglu")
 
@@ -69,6 +80,24 @@ def moe_param_shapes(embed_dim: int, mlp_dim: int, config: MoEConfig,
     return shapes
 
 
+def moe_param_axes(num_layers: Optional[int] = None,
+                   config: Optional[MoEConfig] = None) -> Dict[str, tuple]:
+    """Logical axis names of ``init_moe_params``'s tree (see
+    ``sharding.DEFAULT_RULES``)."""
+    lead = () if num_layers is None else ("stage",)
+    axes = {
+        "router_w": lead + ("embed", None),
+        "expert_fc": lead + ("expert", "embed", "mlp"),
+        "expert_out": lead + ("expert", "mlp", "embed"),
+    }
+    if config is not None and config.activation == "swiglu":
+        axes["expert_gate"] = lead + ("expert", "embed", "mlp")
+    return axes
+
+
+EXPERT_WEIGHTS = ("expert_fc", "expert_out", "expert_gate")
+
+
 def init_moe_params(generator: torch.Generator, embed_dim: int, mlp_dim: int,
                     config: MoEConfig, param_dtype=torch.float32,
                     num_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
@@ -104,19 +133,49 @@ def _experts(params, x_in: torch.Tensor, config: MoEConfig, lhs: str,
     return torch.einsum(f"{out}m,emd->{out}d", h, params["expert_out"].to(dt))
 
 
+# The batch's shards (``sharding.shard_batch_spec``): (mesh axis, tensor
+# dim) in gathering order, inner axes first, so the gathered tokens stand
+# in the whole batch's order (rows data-major over data x fsdp, then the
+# sequence).
+_BATCH_AXES = (("seq", 1), ("fsdp", 0), ("data", 0))
+
+
 def moe_layer(params, x: torch.Tensor, config: MoEConfig, *,
-              noise: Optional[torch.Tensor] = None
+              noise: Optional[torch.Tensor] = None, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, T, D] -> (out [B, T, D], aux loss, an f32 scalar).
 
     The router runs in f32; with ``config.router_jitter`` and ``noise`` (a
-    standard normal [B*T, num_experts] f32 tensor on x's device) the jitter
-    times the noise is added to its logits. The noise is drawn by the
-    caller (``models.common.router_noise``), so a checkpointed block that
-    re-runs in the backward adds the same noise, and a compiled step draws
-    no random numbers inside its graph."""
+    standard normal [tokens, num_experts] f32 tensor on x's device, over
+    the whole batch's tokens) the jitter times the noise is added to its
+    logits. The noise is drawn by the caller (``models.common.router_noise``),
+    so a checkpointed block that re-runs in the backward adds the same
+    noise, and a compiled step draws no random numbers inside its graph.
+
+    With ``mesh``, x is this rank's shard of the batch (rows over data and
+    fsdp, sequence over seq) and ``params``' expert weights its experts'
+    slice (their E dim sharded over "expert"); out is x's shard."""
+    if mesh is None:
+        return _moe(params, x, config, noise, 0)
+    xg = x
+    for axis, dim in _BATCH_AXES:
+        xg = _collectives.all_gather(xg, mesh, axis, dim)
+    e0 = axis_index(mesh, "expert") * params["expert_fc"].shape[0]
+    out, aux = _moe(params, xg, config, noise, e0)
+    out = _collectives.all_reduce(out, mesh, "expert")
+    return local_shard(out, shard_batch_spec(mesh)), aux
+
+
+def _moe(params, x: torch.Tensor, config: MoEConfig,
+         noise: Optional[torch.Tensor], e0: int
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer over all of x's tokens, the experts of ``params`` being
+    experts [e0, e0 + E_local) of ``config.num_experts``: their share of
+    the output (the whole output when they are all the experts) and the aux
+    loss."""
     B, T, D = x.shape
     E = config.num_experts
+    experts = slice(e0, e0 + params["expert_fc"].shape[0])
     tokens = x.reshape(B * T, D)
     n_tok = B * T
     capacity = max(int(n_tok * config.top_k * config.capacity_factor / E),
@@ -139,7 +198,7 @@ def moe_layer(params, x: torch.Tensor, config: MoEConfig, *,
         gates = probs * topk_mask
         gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
         y = _experts(params, tokens, config, "td", "te")         # [T, E, D]
-        out = torch.einsum("te,ted->td", gates.to(x.dtype), y)
+        out = torch.einsum("te,ted->td", gates[:, experts].to(x.dtype), y)
         return out.reshape(B, T, D), aux
 
     # Position of each token in its expert's queue (1-based, in token
@@ -156,6 +215,7 @@ def moe_layer(params, x: torch.Tensor, config: MoEConfig, *,
     slots = torch.arange(capacity, device=x.device)
     dispatch = ((pos[..., None] == slots) & keep[..., None]).to(x.dtype)
     combine = gates[..., None] * dispatch
+    dispatch, combine = dispatch[:, experts], combine[:, experts]
 
     expert_in = torch.einsum("tec,td->ecd", dispatch, tokens)   # [E, C, D]
     expert_out = _experts(params, expert_in, config, "ecd", "ec")  # [E, C, D]

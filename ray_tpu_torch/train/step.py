@@ -1,10 +1,22 @@
-"""The train and eval steps on one card, as compiled programs.
+"""The train and eval steps: compiled programs on one card, and the SPMD
+step on a mesh.
 
-Counterpart of ``ray_tpu/train/step.py`` with ``mesh=None``: forward and
-backward through the model's ``loss_fn`` (checkpointed per block by the
-config's remat policy), then optax's chain, clip by global norm and AdamW on
-a warmup-cosine schedule, over every parameter. A mesh, sharding rules or
-pipelining need the parallel layer, which is not ported yet, and raise.
+Counterpart of ``ray_tpu/train/step.py``: forward and backward through the
+model's ``loss_fn`` (checkpointed per block by the config's remat policy),
+then optax's chain, clip by global norm and AdamW on a warmup-cosine
+schedule, over every parameter.
+
+On a mesh (``parallel/``) the parameters and the AdamW moments are DTensors
+placed by ``param_shardings``, each rank takes its shard of the batch
+(``shard_batch_spec``), each parameter is gathered to the layout the model
+computes with (``common.mesh_params``), the gradients are summed over the
+ranks into the parameters' placements (``sharding.reduce_grads``), and the
+update runs on each rank's shards with the global norm of the whole
+gradients. Where the model itself communicates (a sequence sharded over
+"seq", the GPipe loop over "stage" > 1, or MoE over a sharded batch or
+"expert" > 1) the step runs eagerly; elsewhere the gathers, the loss's
+shares and the reductions run eagerly around the same compiled programs as
+without a mesh, on each rank's local tensors.
 
 The reference returns ``jax.jit`` programs; the port returns
 ``torch.compile`` programs, the analog: Dynamo traces the step's Python
@@ -33,8 +45,18 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch import nn
 
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
 from ray_tpu_torch._private.device import DeviceLike
 from ray_tpu_torch.models import common, module_for
+from ray_tpu_torch.parallel.mesh import axis_size
+from ray_tpu_torch.parallel.sharding import (
+    local_shard,
+    reduce_grads,
+    shard_batch_spec,
+    tree_shardings,
+)
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -133,13 +155,18 @@ class ClipAdamW:
 
 def clip_adamw_(params, grads, exp_avgs, exp_avg_sqs, steps, lr, *,
                 b1: float, b2: float, eps: float, weight_decay: float,
-                max_norm: float) -> torch.Tensor:
+                max_norm: float,
+                norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Clip ``grads`` in place by their global norm, then one AdamW update
     of ``params`` (and its moments and step counts) in place, at ``lr`` (a
     0-dim tensor), in the multi-tensor ops of torch's capturable AdamW.
-    Returns the norm before clipping."""
+    Returns the norm before clipping: ``norm`` when given (the mesh step's,
+    over the whole tensors of which these are shards), else the norm of
+    ``grads``."""
     with torch.no_grad():
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if norm is None:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
         # optax scales by max_norm / norm only when norm >= max_norm (no eps)
         coef = torch.where(norm < max_norm, torch.ones_like(norm),
                            max_norm / norm)
@@ -166,23 +193,96 @@ def clip_adamw_(params, grads, exp_avgs, exp_avg_sqs, steps, lr, *,
     return norm
 
 
+def param_shardings(mesh, config, rules=None):
+    """Each parameter's ``NamedSharding`` on ``mesh`` by the rules, as a
+    tree of the parameter tree's shape. ``config`` may be any model
+    family's config; dispatch goes through ``models.module_for``."""
+    return tree_shardings(mesh, module_for(config).param_axes(config), rules)
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def _set_param(module: nn.Module, name: str, value: torch.Tensor) -> None:
+    *path, leaf = name.split(".")
+    owner = module.get_submodule(".".join(path)) if path else module
+    setattr(owner, leaf, nn.Parameter(value))
+
+
+def _distribute(params: nn.Module, shardings) -> None:
+    """Each parameter as a DTensor placed by ``shardings`` (every rank
+    holds the same whole value, as a seeded init or a converted tree
+    gives)."""
+    for name, sh in _leaves(shardings):
+        p = params.get_parameter(name)
+        if isinstance(p, DTensor):
+            value = p.detach().redistribute(sh.mesh, sh.placements)
+        else:
+            value = distribute_tensor(p.detach(), sh.mesh, sh.placements)
+        _set_param(params, name, value)
+
+
+def _constrain(params: nn.Module, opt_state, shardings) -> None:
+    """The parameters, and their AdamW moments with them, redistributed to
+    ``shardings`` where they are placed otherwise (the reference's
+    ``with_sharding_constraint`` on the parameters)."""
+    index = {n: i for i, (n, _) in enumerate(params.named_parameters())}
+    for name, sh in _leaves(shardings):
+        p, i = params.get_parameter(name), index[name]
+        if tuple(p.placements) == tuple(sh.placements):
+            continue
+        _set_param(params, name, p.detach().redistribute(sh.mesh,
+                                                         sh.placements))
+        for kind in ("exp_avg", "exp_avg_sq"):
+            opt_state[kind][i] = opt_state[kind][i].redistribute(
+                sh.mesh, sh.placements)
+
+
 def create_train_state(config, opt: ClipAdamW,
                        generator: Optional[torch.Generator] = None,
                        device: DeviceLike = "cuda",
-                       params: Optional[nn.Module] = None) -> Dict[str, Any]:
+                       params: Optional[nn.Module] = None,
+                       mesh=None, rules=None) -> Dict[str, Any]:
     """{"params", "opt_state", "step"}. Fresh parameters from ``generator``
     on ``device``, or ``params`` as given (for example a JAX tree converted
-    by ``models.convert.params_from_numpy``, on its own device)."""
+    by ``models.convert.params_from_numpy``, on its own device). With
+    ``mesh``, each parameter becomes a DTensor placed by
+    ``param_shardings(mesh, config, rules)`` (every rank builds the same
+    parameters from the same seed or tree), and each AdamW moment follows
+    its parameter's placement."""
     if params is None:
         params = module_for(config).init_params(config, generator, device)
+    if mesh is not None:
+        _distribute(params, param_shardings(mesh, config, rules))
     return {"params": params, "opt_state": opt.init(params), "step": 0}
 
 
-def _no_mesh(mesh, rules) -> None:
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "a mesh or sharding rules need the parallel layer, which is not "
-            "ported yet")
+def _mesh_programs(config, mesh, pipelined: bool, backend: Optional[str]):
+    """(the programs' backend, the mesh the model's loss sees). The model
+    calls collectives itself on ``mesh`` for ring or Ulysses attention over
+    a sharded sequence, the GPipe loop over several stages, and MoE over a
+    sharded batch or several expert ranks: then the programs run eagerly
+    ("auto" or None; a program does not trace a collective, and any other
+    backend raises) and the loss takes the mesh. Otherwise ``backend`` as
+    without a mesh, and the loss takes none: it computes on the local
+    tensors that the step gathers for it."""
+    def size(axis):
+        return axis_size(mesh, axis)
+
+    if mesh is None or not (
+            size("seq") > 1 or (pipelined and size("stage") > 1)
+            or (getattr(config, "moe", None) is not None and any(
+                size(a) > 1 for a in ("data", "fsdp", "seq", "expert")))):
+        return backend, None
+    if backend not in ("auto", None):
+        raise ValueError(f"backend {backend!r}: a model that communicates on "
+                         "its mesh runs eagerly; use 'auto' or None")
+    return None, mesh
 
 
 def _program(fn: Callable, backend: Optional[str]) -> Callable:
@@ -227,29 +327,48 @@ def _program(fn: Callable, backend: Optional[str]) -> Callable:
     return call
 
 
-def _tree(params: nn.Module) -> Dict[str, Any]:
-    """The parameters as a nested dict by their dotted names (``blocks.qkv_w``
-    -> tree["blocks"]["qkv_w"]), the form the models' functions index. A
-    compiled program takes this dict, so a new module of the same shapes
-    (``donate=False``) reuses the program."""
-    tree: Dict[str, Any] = {}
-    for name, p in params.named_parameters():
-        *path, leaf = name.split(".")
-        node = tree
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = p
-    return tree
-
-
 def _device(params: nn.Module) -> torch.device:
     return next(params.parameters()).device
 
 
-def _loss_batch(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    """The loss batch on ``device``, outside the compiled program."""
+def _loss_batch(batch: Dict[str, Any], device: torch.device,
+                mesh=None) -> Dict[str, Any]:
+    """The loss batch on ``device``, outside the compiled program; on a mesh
+    this rank's shard of it (``shard_batch_spec``) from the whole batch
+    (tensors, arrays or DTensors), which every rank passes alike."""
+    batch = {k: v.full_tensor() if isinstance(v, DTensor) else v
+             for k, v in batch.items()}
     inputs, targets, mask = common.next_token_batch(batch, device)
+    if mesh is not None:
+        spec = shard_batch_spec(mesh)
+        inputs, targets = local_shard(inputs, spec), local_shard(targets, spec)
+        mask = None if mask is None else local_shard(mask, spec)
     return {"inputs": inputs, "targets": targets, "mask": mask}
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _mesh_update(update_program, dev, opt: "ClipAdamW", opt_state,
+                 params: nn.Module, count: int, mesh) -> torch.Tensor:
+    """The AdamW update of a mesh step on each rank's shards: the global
+    norm of the whole gradients (each shard's squares counted once over the
+    ranks that hold it alike), then ``clip_adamw_``'s program on the local
+    shards."""
+    plist, grads, *rest = opt.inputs(opt_state, params, count)
+    local_grads = [_local(g) for g in grads]
+    sq = torch.zeros((), dtype=torch.float32, device=local_grads[0].device)
+    for g, lg in zip(grads, local_grads):
+        copies = 1
+        if isinstance(g, DTensor):
+            copies = math.prod(n for n, pl in zip(mesh.shape, g.placements)
+                               if isinstance(pl, Replicate))
+        sq = sq + lg.to(torch.float32).pow(2).sum() / copies
+    dist.all_reduce(sq)
+    return update_program(dev, [_local(p) for p in plist], local_grads,
+                          *[[_local(t) for t in ts] for ts in rest[:3]],
+                          rest[3], **opt.hyper, norm=sq.sqrt())
 
 
 def make_train_step(config, opt: ClipAdamW, mesh=None, rules=None,
@@ -276,14 +395,26 @@ def make_train_step(config, opt: ClipAdamW, mesh=None, rules=None,
     was and returns new ones. A jittered MoE router takes noise drawn
     outside the program from a generator seeded by ``seed`` and the step
     number (JAX folds the step into its key; the two draw different
-    numbers)."""
-    _no_mesh(mesh, rules)
+    numbers).
+
+    On ``mesh`` (see the module's docstring) every rank calls the step with
+    the same whole batch and takes its shard; ``rules`` place the
+    parameters (and their moments) by ``param_shardings(mesh, config,
+    rules)`` before the step, as the reference constrains them. The loss
+    and ``grad_norm`` are the whole batch's, alike on every rank. Where
+    the model communicates on the mesh the step is eager ("auto" or None;
+    another backend raises); elsewhere ``backend`` applies to the same
+    programs as without a mesh, run on the gathered local tensors."""
+    pipelined = bool(pipeline_microbatches)
+    backend, in_model = _mesh_programs(config, mesh, pipelined, backend)
     model = module_for(config)
+    p_shard = (param_shardings(mesh, config, rules)
+               if mesh is not None and rules is not None else None)
 
     def loss_fn(tree, batch, noise):
         return model.loss_fn(tree, batch, config,
                              pipeline_microbatches=pipeline_microbatches,
-                             router_noise=noise)
+                             router_noise=noise, mesh=in_model)
 
     loss_program = _program(loss_fn, backend)
     update_program = _program(clip_adamw_, backend)
@@ -296,14 +427,37 @@ def make_train_step(config, opt: ClipAdamW, mesh=None, rules=None,
                              else [t.clone() for t in v])
                          for k, v in opt_state.items()}
         dev = _device(params)
-        batch = _loss_batch(batch, dev)
-        noise = common.router_noise(config, batch["inputs"].numel(),
-                                    (seed << 32) + state["step"], dev)
+        if p_shard is not None:
+            _constrain(params, opt_state, p_shard)
+        batch = _loss_batch(batch, dev, mesh)
+        # the router's noise covers the whole batch's tokens
+        n_tokens = batch["inputs"].numel() * math.prod(
+            axis_size(mesh, a) for a in ("data", "fsdp", "seq"))
+        noise = (None if pipeline_microbatches else common.router_noise(
+            config, n_tokens, (seed << 32) + state["step"], dev))
         params.zero_grad(set_to_none=True)
-        loss = loss_program(dev, _tree(params), batch, noise)
-        loss.backward()
-        grad_norm = update_program(
-            dev, *opt.inputs(opt_state, params, state["step"]), **opt.hyper)
+        if mesh is None or in_model is not None:
+            # the program takes the parameters as a dict, so a new module of
+            # the same shapes (donate=False) reuses it
+            loss = loss_program(dev, common.param_tree(params), batch, noise)
+            loss.backward()
+        else:
+            # the local program's loss is this rank's mean; its share of the
+            # whole batch's loss seeds the backward (an MoE model here sees
+            # the whole batch on every rank, so its aux splits alike)
+            local = common.mesh_params(params, mesh, pipelined)
+            weight = common.share_weight(batch["targets"], batch["mask"], mesh)
+            share = loss_program(dev, local, batch, noise) * weight
+            share.backward()
+            loss = common.summed(share)
+        if mesh is None:
+            grad_norm = update_program(
+                dev, *opt.inputs(opt_state, params, state["step"]),
+                **opt.hyper)
+        else:
+            reduce_grads(params)
+            grad_norm = _mesh_update(update_program, dev, opt, opt_state,
+                                     params, state["step"], mesh)
         n = state["step"] + 1
         return (dict(state, params=params, opt_state=opt_state, step=n),
                 {"loss": loss.detach(), "grad_norm": grad_norm, "step": n})
@@ -315,18 +469,26 @@ def make_eval_step(config, mesh=None,
                    backend: Optional[str] = "auto") -> Callable:
     """(params, batch) -> loss, without gradients: the analog of the
     reference's ``jax.jit(eval_fn)``, compiled as ``make_train_step``'s
-    programs are (``backend``). Attention runs K1."""
-    _no_mesh(mesh, None)
+    programs are (``backend``), on a mesh as ``make_train_step``'s.
+    Attention runs K1."""
+    backend, in_model = _mesh_programs(config, mesh, False, backend)
     model = module_for(config)
 
     def eval_fn(tree, batch):
         with torch.no_grad():
-            return model.loss_fn(tree, batch, config)
+            return model.loss_fn(tree, batch, config, mesh=in_model)
 
     program = _program(eval_fn, backend)
 
     def eval_step(params, batch):
         dev = _device(params)
-        return program(dev, _tree(params), _loss_batch(batch, dev))
+        batch = _loss_batch(batch, dev, mesh)
+        if mesh is None or in_model is not None:
+            return program(dev, common.param_tree(params), batch)
+        with torch.no_grad():
+            local = common.mesh_params(params, mesh, False)
+            return common.summed(program(dev, local, batch)
+                                 * common.share_weight(batch["targets"],
+                                                       batch["mask"], mesh))
 
     return eval_step

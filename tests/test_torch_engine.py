@@ -356,6 +356,9 @@ _PORT_MODULES = [
     "ray_tpu_torch.parallel", "ray_tpu_torch.parallel.moe",
     "ray_tpu_torch.llm.programs", "ray_tpu_torch.llm.serving",
     "ray_tpu_torch.llm.serving_patterns", "ray_tpu_torch.llm.batch",
+    "ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
+    "ray_tpu_torch.parallel.ring_attention", "ray_tpu_torch.parallel.pipeline",
+    "ray_tpu_torch.parallel.dryrun", "ray_tpu_torch.parallel._collectives",
 ]
 
 

@@ -170,5 +170,6 @@ def test_presets_and_unported_options():
     assert module_for(tllama.LLAMA_1B) is tllama
     with pytest.raises(KeyError):
         get_preset("nope")
-    with pytest.raises(NotImplementedError):
-        tgpt2.GPT2Config(attention_impl="ring")
+    # ring and Ulysses attention are ported (tests/test_torch_ring.py)
+    for impl in ("ring", "ulysses"):
+        assert tgpt2.GPT2Config(attention_impl=impl).attention_impl == impl

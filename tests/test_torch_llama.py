@@ -354,13 +354,21 @@ def test_params_layout_counts_and_unported_options(np_trees):
         convert.params_from_numpy(tree, tcfg, device="cpu")
     with pytest.raises(ValueError):
         convert.params_from_numpy(np_trees["tiny"], tcfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tcfg, attention_impl="ulysses")
-    with pytest.raises(NotImplementedError):
-        tllama.loss_fn(params, _batch(), tcfg, pipeline_microbatches=2)
-    with pytest.raises(NotImplementedError):
-        tllama.forward_pipelined(params, torch.zeros(1, 4, dtype=torch.long),
-                                 tcfg)
+    # the parallel layer is ported: without a mesh, Ulysses attention and
+    # the pipelined path (one stage) are the one-device model
+    toks = torch.from_numpy(_batch()["tokens"][:, :-1]).long()
+    uly = dataclasses.replace(tcfg, attention_impl="ulysses")
+    with torch.no_grad():
+        ref, _ = tllama.forward(params, toks, tcfg)
+        out, _ = tllama.forward(params, toks, uly)
+        piped, _ = tllama.forward_pipelined(params, toks, tcfg)
+        loss = tllama.loss_fn(params, _batch(), tcfg)
+        loss_piped = tllama.loss_fn(params, _batch(), tcfg,
+                                    pipeline_microbatches=2)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(piped.numpy(), ref.numpy(), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(float(loss_piped), float(loss), rtol=1e-5)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tllama.init_params(tcfg)
