@@ -80,8 +80,9 @@ Phases, in order; any failure exits non-zero:
    ``forward_cached`` as in phase 4; the f32 engine's greedy tokens equal
    argmax over the full forward through K1; the bf16 engine answers phase
    4's requests, with phase 4's numbers.
-9. Llama training: the ``llama-1b`` preset (L=16, rope_theta 500000), at
-   B=8, T=2048, bf16 over f32 parameters, remat
+9. Llama training: the ``llama-1b`` preset (rope_theta 500000) at its
+   published widths, its depth cut from 16 layers to 8 (phase 15's
+   time), at B=8, T=2048, bf16 over f32 parameters, remat
    "dots", 12 compiled steps with phase 5's checks: finite losses, the
    first within 0.5 of ln(32000), a falling loss, per step L launches
    each of K2, K3 and K4 and none of K1, no recompile; then 6 eager
@@ -116,7 +117,7 @@ Phases, in order; any failure exits non-zero:
     backward through K4 + K3 from the merged out and lse, against K2 and
     K4 + K3 over the whole sequence; then the same with causal=False
     throughout. (b) The mesh path at full width: a world-size-1 NCCL group
-    and ``single_device_mesh()``; llama-1b (phase 9's preset and batch)
+    and ``single_device_mesh()``; llama-1b (phase 9's config and batch)
     through ``create_train_state(mesh=)`` and ``make_train_step(config,
     opt, mesh)`` (compiled: on one rank the model does not communicate),
     6 steps: finite, falling, no recompile after step 0, L launches each of
@@ -142,7 +143,25 @@ Phases, in order; any failure exits non-zero:
     1,000 empty tasks and 1,000 actor calls a second, put + get GB/s of a
     256 MiB f32 CPU tensor and of a 256 MiB bf16 CUDA tensor (staged), the
     actor's tokens/s beside phase 12's, the seconds to spawn a node. (e)
-    After ``shutdown()`` no node process and no new shm segment is left.
+    After ``shutdown()`` (which phase 15 precedes) no node process and no
+    new shm segment is left.
+15. The trainer on the card, inside phase 14's session:
+    ``SPMDTrainer(...).fit()`` trains GPT-2 small (phase 5's preset,
+    dtypes, remat, optimizer and shape) through ``default_train_loop`` on
+    one worker actor that holds node 0's ``GPU``, under an NCCL world of
+    one, 8 steps with a checkpoint every 4; its first attempt fails just
+    after step 4's checkpoint and ``FailureConfig(max_failures=1)`` resumes
+    it there. The result is at step 8, the steps reported 1-8 once each,
+    every loss finite, the first within 2e-3 relative of phase 5's compiled
+    step run in the driver on the same seed and batch; K2, K3 and K4 12
+    launches each a step run in the worker's process, K1 none; the final
+    checkpoint loads in the driver on the card at step 8. A
+    ``TorchTrainer`` DDP loop on NCCL, world size 1, on the card gives
+    parameters bit-equal to the same loop without the trainer. Printed:
+    ms a step and tokens/s beside phase 5's, each attempt's first step
+    seconds and Inductor's FX graph cache hits and misses in the worker,
+    checkpoint save and load seconds and bytes, the worker's peak memory,
+    the phase's seconds.
 
 Launch counts are set to 0 just before each main path and read just
 after it: K1's before phase 3 and after phase 4 (GPT-2 serving), before
@@ -153,7 +172,9 @@ calls of phase 5's compiled eval step; K2-K4's before and after phase 13's
 ring body (causal and not) and its mesh train steps, and K1's around its
 mesh eval step; phase 14's K1 count lives in node 0's process (its tasks
 and its actor are threads there): its first task sets it to 0, the actor
-reads it after the completions. The engines' programs count
+reads it after the completions; phase 15's K2-K4 counts live there too,
+set to 0 by a task on node 0 just before ``fit()`` and read by one just
+after it. The engines' programs count
 their graph replays; each must replay on its main path. The last lines are the card, the
 ``kernels`` JSON line and the result line. It imports nothing of JAX and
 nothing of ``ray_tpu``.
@@ -190,11 +211,14 @@ EAGER_STEPS = 6
 
 # llama-1b (ray_tpu/models/llama.py LLAMA_1B) at published widths: served
 # as LLMConfig(model_family="llama") builds it (rope_theta and mlp_dim at
-# LlamaConfig's defaults, as in JAX), trained as the preset itself.
+# LlamaConfig's defaults, as in JAX), trained as the preset itself, cut to
+# LLAMA_TRAIN_LAYERS of its 16 layers in phases 9 and 13 (their compiles
+# take most of their time, and phase 15 needs the room).
 LLAMA_ENGINE = dict(model_family="llama", vocab_size=32000, max_seq_len=4096,
                     num_layers=16, num_heads=32, num_kv_heads=8,
                     embed_dim=2048)
 LLAMA_TRAIN_BATCH = (8, 2048)
+LLAMA_TRAIN_LAYERS = 8
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -503,11 +527,13 @@ def session_leftovers(pids, port, object_hexes):
     return alive, segs
 
 
-def runtime_phase(card, device, model_kw, text, phase12_tok_s):
+def runtime_phase(card, device, model_kw, text, phase12_tok_s, then=None):
     """Phase 14: the runtime core on the card. Returns its numbers, the
     launches on the path of the node that holds the card (its tasks and its
     actor share one process, so one count covers them: ``node_launches``)
-    and, apart, those of the actor's argmax check (``check_launches``)."""
+    and, apart, those of the actor's argmax check (``check_launches``).
+    ``then(node_id)``, given the id of the card's node, runs in the same
+    session before its shutdown; its result is ``out["then"]``."""
     import dataclasses
 
     import numpy as np
@@ -851,6 +877,8 @@ def runtime_phase(card, device, model_kw, text, phase12_tok_s):
             f"{out['tasks_per_s']:.0f}/s and 1,000 actor calls "
             f"{out['actor_calls_per_s']:.0f}/s (each 1,000 submitted, then "
             "one get)")
+        if then is not None:
+            out["then"] = then(gpu_nodes[0]["node_id"])
     finally:
         pids = [n.proc.pid for n in (*cluster.nodes, *cluster.warm)]
         port = cluster.gcs_addr[1]
@@ -867,6 +895,308 @@ def runtime_phase(card, device, model_kw, text, phase12_tok_s):
         f"objects) {segs} remain")
     check(not left and not segs, f"shutdown() left node processes {left} or "
           f"shm segments {segs}")
+    return out
+
+
+# Phase 15: GPT-2 small trained by SPMDTrainer's default loop on a worker
+# that holds the card: 8 steps, a checkpoint every 4, the first attempt
+# failing once after step 4's checkpoint, with phase 5's optimizer.
+TRAINER_STEPS = 8
+TRAINER_CKPT_EVERY = 4
+TRAINER_DATA_SEED = 15
+# The optimizer of every training phase.
+TRAIN_OPTIMIZER = dict(learning_rate=1e-3, warmup_steps=2, total_steps=20)
+
+
+def ddp_body(device):
+    """A few AdamW steps of a small MLP through ``prepare_model`` on
+    seeded data: DDP inside a process group, the model itself outside one.
+    Returns the final parameters on the CPU and the model's class name."""
+    import torch
+
+    from ray_tpu_torch.train.torch import prepare_model
+
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(512, 1024), torch.nn.GELU(),
+                                torch.nn.Linear(1024, 512)).to(device)
+    model = prepare_model(model)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+    data = torch.Generator().manual_seed(1)
+    for _ in range(5):
+        x = torch.randn(64, 512, generator=data).to(device)
+        loss = model(x).pow(2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    return [p.detach().cpu() for p in model.parameters()], type(model).__name__
+
+
+def fail_once_after_checkpoint(config):
+    """``default_train_loop`` that raises once, just after the checkpoint of
+    step ``config["fail_after"]`` is reported (a marker file guards the
+    once), and that adds to the metrics reported with each checkpoint its
+    ``save_pytree`` seconds and the worker's process group (backend, world
+    size)."""
+    import os
+    import time
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train import checkpoint as ckpt_mod
+
+    ctx = train.get_context()
+    report, save = ctx.report, ckpt_mod.save_pytree
+    saves = []
+
+    def timed_save(state, path):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        save(state, path)
+        saves.append(time.perf_counter() - t)
+
+    def report_then_fail(metrics, checkpoint=None):
+        if checkpoint is not None:
+            grouped = torch.distributed.is_initialized()
+            metrics = dict(metrics, checkpoint_save_s=saves[-1], group=(
+                grouped and torch.distributed.get_backend(),
+                grouped and torch.distributed.get_world_size()))
+        report(metrics, checkpoint)
+        if (checkpoint is not None and metrics["step"] == config["fail_after"]
+                and not os.path.exists(config["marker"])):
+            open(config["marker"], "w").close()
+            raise RuntimeError(f"injected failure after step "
+                               f"{metrics['step']}'s checkpoint")
+
+    ctx.report = report_then_fail
+    ckpt_mod.save_pytree = timed_save
+    try:
+        return train.default_train_loop(config)
+    finally:
+        ckpt_mod.save_pytree = save
+
+
+def trainer_phase(card, device, node_id, model_kw, batch_shape,
+                  reference_loss, phase5):
+    """Phase 15, inside phase 14's session: ``SPMDTrainer`` trains GPT-2
+    small on a worker actor that holds the card (node ``node_id``, the
+    node of the card), under an NCCL world of one, through
+    ``fail_once_after_checkpoint`` with ``FailureConfig(max_failures=1)``;
+    then a ``TorchTrainer`` DDP loop on the card against the same loop
+    without the trainer. ``reference_loss(tokens)`` is the first loss of
+    phase 5's compiled step on the seeded state; ``phase5`` its ms a step.
+    Returns the numbers and the kernels' launches in the worker's
+    process."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.convert import config_from_kwargs
+    from ray_tpu_torch.train import (
+        FailureConfig,
+        OptimizerConfig,
+        RunConfig,
+        ScalingConfig,
+        SPMDTrainer,
+        create_train_state,
+        load_pytree,
+    )
+    from ray_tpu_torch.train.torch import TorchTrainer
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy as Pin,
+    )
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_gpu = dev.type == "cuda"
+    B, T = batch_shape
+    model = dict(model_kw, family="gpt2", attention_impl="flash", remat=True,
+                 remat_policy="dots")
+    kw = dict(model)
+    cfg = config_from_kwargs(kw, kw.pop("family"))
+    L = cfg.num_layers
+    out = {}
+
+    # the driver's reference: the loop's first batch through phase 5's
+    # compiled step on the seeded state
+    toks = np.random.default_rng(TRAINER_DATA_SEED).integers(
+        0, cfg.vocab_size, (B, T + 1), dtype=np.int32)
+    ref_loss = reference_loss(torch.from_numpy(toks).to(dev, torch.long))
+    gc.collect()
+    if on_gpu:
+        torch.cuda.empty_cache()
+
+    @rt.remote
+    def node_state(reset):
+        """The launch counts, peak memory and Inductor's FX graph cache
+        counters of this node's process; ``reset`` sets the first two to
+        0 first."""
+        import torch
+
+        from ray_tpu_torch.ops import attention as attn
+
+        if reset:
+            for name in attn.launches:
+                attn.launches[name] = 0
+            if torch.cuda.is_available():
+                torch.cuda.reset_peak_memory_stats()
+        counters = torch._dynamo.utils.counters["inductor"]
+        return {"launches": dict(attn.launches),
+                "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if torch.cuda.is_available() else 0.0),
+                "fx_hit": counters["fxgraph_cache_hit"],
+                "fx_miss": counters["fxgraph_cache_miss"]}
+
+    on_card = node_state.options(scheduling_strategy=Pin(node_id))
+    root = tempfile.mkdtemp(prefix="phase15_")
+    try:
+        before = rt.get(on_card.remote(True))
+        t0 = time.perf_counter()
+        result = SPMDTrainer(
+            fail_once_after_checkpoint,
+            train_loop_config=dict(
+                model=model, optimizer=TRAIN_OPTIMIZER,
+                num_steps=TRAINER_STEPS, checkpoint_every=TRAINER_CKPT_EVERY,
+                batch_size=B, seq_len=T, data_seed=TRAINER_DATA_SEED,
+                device=device, fail_after=TRAINER_CKPT_EVERY,
+                marker=os.path.join(root, "failed_once")),
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=on_gpu),
+            run_config=RunConfig(name="gpt2-small", storage_path=root,
+                                 failure_config=FailureConfig(max_failures=1)),
+        ).fit()
+        out["fit_s"] = time.perf_counter() - t0
+        after = rt.get(on_card.remote(False))
+        out["launches"] = after["launches"]
+        history = result.metrics_history
+        steps = [m["step"] for m in history]
+        losses = [m["loss"] for m in history]
+        log(f"[{card}] trainer (SPMDTrainer, GPT-2 small L={L} B={B} T={T} "
+            f"bf16/f32 remat dots, 1 GPU worker, NCCL world of 1): steps "
+            f"{steps}, losses " + " ".join(f"{x:.4f}" for x in losses)
+            + f"; launches in the worker's process {out['launches']}")
+        check(result.metrics.get("step") == TRAINER_STEPS,
+              f"the trainer's result is at step {result.metrics.get('step')}, "
+              f"want {TRAINER_STEPS}")
+        check(steps == list(range(1, TRAINER_STEPS + 1)),
+              f"reported steps {steps}: the second attempt did not resume "
+              f"at step {TRAINER_CKPT_EVERY}")
+        check(os.path.exists(os.path.join(root, "failed_once")),
+              "the first attempt did not fail")
+        groups = [tuple(m["group"]) for m in history if "group" in m]
+        log(f"the worker's process group at each checkpoint: {groups}")
+        check(groups == [("nccl" if on_gpu else False,
+                          1 if on_gpu else False)] * 2,
+              f"the worker's process groups {groups}, want NCCL of 1")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        want = {"flash_fwd": 0, "flash_fwd_lse": L * TRAINER_STEPS,
+                "flash_bwd_dkv": L * TRAINER_STEPS,
+                "flash_bwd_dq": L * TRAINER_STEPS}
+        check(out["launches"] == want, f"launches in the worker's process "
+              f"{out['launches']}, want {want} ({L} a step, "
+              f"{TRAINER_STEPS} steps run)")
+        rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+        log(f"trainer's first loss {losses[0]:.6f}, phase 5's compiled step "
+            f"in the driver on the same seed and batch {ref_loss:.6f}: rel "
+            f"{rel:.3e} (bound 2e-3)")
+        check(rel <= 2e-3, f"the trainer's first loss {losses[0]} against "
+              f"the driver's {ref_loss}: rel {rel:.3e} > 2e-3")
+
+        # the numbers: steps after each attempt's first, which compiles
+        first = {m["step"]: B * T / m["tokens_per_sec"] for m in history
+                 if m["step"] in (1, TRAINER_CKPT_EVERY + 1)}
+        rest = [B * T / m["tokens_per_sec"] * 1e3 for m in history
+                if m["step"] not in first]
+        out["step_ms"] = float(np.median(rest))
+        out["tok_s"] = B * T / out["step_ms"] * 1e3
+        out["first_step_s"] = first
+        out["peak_gb"] = after["peak_gb"]
+        out["fx_cache"] = (after["fx_hit"] - before["fx_hit"],
+                           after["fx_miss"] - before["fx_miss"])
+        saves = {m["step"]: m["checkpoint_save_s"] for m in history
+                 if "checkpoint_save_s" in m}
+        ckpt = result.checkpoint.path
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, files in os.walk(ckpt) for f in files)
+        opt = OptimizerConfig(**TRAIN_OPTIMIZER).build()
+        state = create_train_state(cfg, opt, torch.Generator().manual_seed(0),
+                                   dev)
+        init = [p.detach().clone() for p in state["params"].parameters()]
+        if on_gpu:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = load_pytree(ckpt, target=state)
+        if on_gpu:
+            torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        moved = sum(not torch.equal(a, p) for a, p in
+                    zip(init, state["params"].parameters()))
+        on_dev = {p.device.type for p in state["params"].parameters()}
+        log(f"final checkpoint {os.path.basename(ckpt)}: {nbytes / 1e9:.3f} "
+            f"GB; loaded in the driver on {on_dev} in {out['load_s']:.3f} s at "
+            f"step {state['step']}; {moved} of {len(init)} parameters moved "
+            "from the seeded init")
+        check(state["step"] == TRAINER_STEPS and on_dev == {dev.type}
+              and moved == len(init),
+              f"the final checkpoint loaded at step {state['step']} on "
+              f"{on_dev}, {moved} of {len(init)} parameters trained")
+        out["ckpt_gb"] = nbytes / 1e9
+        out["save_s"] = saves
+        del state, init
+        gc.collect()
+        if on_gpu:
+            torch.cuda.empty_cache()
+        log(f"[{card}] trainer: {out['step_ms']:.2f} ms a step after each "
+            f"attempt's first ({out['tok_s']:.0f} tokens/s; phase 5's "
+            f"in-process compiled step {phase5:.2f} ms, "
+            f"{B * T / phase5 * 1e3:.0f} tokens/s); first steps (compiling) "
+            + ", ".join(f"step {k} {v:.1f} s" for k, v in first.items())
+            + f"; Inductor's FX graph cache in the worker's process: "
+            f"{out['fx_cache'][0]} hits, {out['fx_cache'][1]} misses "
+            f"(on-disk cache of phase 5 {'served' if out['fx_cache'][0] else 'did not serve'} "
+            f"the worker); checkpoint save (save_pytree) "
+            + ", ".join(f"step {k} {v:.2f} s" for k, v in saves.items())
+            + f", load {out['load_s']:.2f} s, {out['ckpt_gb']:.3f} GB; the "
+            f"worker's peak memory {out['peak_gb']:.2f} GB; fit "
+            f"{out['fit_s']:.1f} s")
+
+        # TorchTrainer: DDP on NCCL, a world of one on the card, against the
+        # same loop without the trainer
+        def ddp_loop(config):
+            import torch.distributed as dist
+
+            from ray_tpu_torch import train
+
+            params, kind = ddp_body(config["device"])
+            grouped = dist.is_initialized()
+            train.report({"params": [p.numpy() for p in params],
+                          "backend": grouped and dist.get_backend(),
+                          "world": grouped and dist.get_world_size(),
+                          "model": kind})
+
+        t0 = time.perf_counter()
+        ddp = TorchTrainer(
+            ddp_loop, train_loop_config={"device": device},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=on_gpu),
+            run_config=RunConfig(name="ddp", storage_path=root)).fit().metrics
+        out["ddp_s"] = time.perf_counter() - t0
+        plain, kind = ddp_body(device)
+        equal = [np.array_equal(a, b.numpy()) for a, b in zip(ddp["params"], plain)]
+        log(f"TorchTrainer on the card: {ddp['model']} on {ddp['backend']} "
+            f"world {ddp['world']}, {out['ddp_s']:.1f} s; final parameters "
+            f"bit-equal to the loop without the trainer ({kind}): {equal}")
+        check(ddp["backend"] == "nccl" and ddp["world"] == 1
+              and ddp["model"] == "DistributedDataParallel"
+              and len(equal) == len(plain) and all(equal),
+              f"TorchTrainer DDP: {ddp['backend']} world {ddp['world']} "
+              f"{ddp['model']}, parameters equal {equal}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{card}] phase 15: {out['phase_s']:.1f} s")
     return out
 
 
@@ -1373,7 +1703,7 @@ def main() -> int:
             "slot: "
             + ", ".join(f"{k} {v:.3f}" for k, v in s["sample_ms"].items()))
 
-    opt_cfg = OptimizerConfig(learning_rate=1e-3, warmup_steps=2, total_steps=20)
+    opt_cfg = OptimizerConfig(**TRAIN_OPTIMIZER)
 
     graphs = torch._dynamo.utils.counters["stats"]
 
@@ -1459,7 +1789,7 @@ def main() -> int:
               f"{label} eager steps: losses {eager['losses']}, launches "
               f"{eager['per_step']}")
         return state, batch, opt, dict(launches=launches, peak_gb=peak_gb,
-                                       losses=losses,
+                                       losses=losses, step=train_step,
                                        step_s=tr["step_s"], want=want,
                                        eager=eager)
 
@@ -1880,7 +2210,8 @@ def main() -> int:
 
     # ----------------------------- 9. main path: llama training, llama-1b
     check(l1b.rope_theta == 500000.0, "llama-1b preset")
-    ltrain_cfg = dataclasses.replace(l1b, attention_impl="flash", remat=True,
+    ltrain_cfg = dataclasses.replace(l1b, num_layers=LLAMA_TRAIN_LAYERS,
+                                     attention_impl="flash", remat=True,
                                      remat_policy="dots")
     state, batch, opt, ltrain = train_steps("llama-1b", ltrain_cfg,
                                             *LLAMA_TRAIN_BATCH)
@@ -2244,12 +2575,29 @@ def main() -> int:
     phase_done(13)
 
     # ------------------------------------------------ 14. the runtime core
+    # ----------------------------- 15. the trainer on the card, in its session
+    def reference_loss(tokens):
+        """Phase 5's compiled step (its programs, no new compile) on the
+        seeded state of ``train_cfg``: the first loss."""
+        st = create_train_state(train_cfg, opt_cfg.build(),
+                                torch.Generator().manual_seed(0), dev)
+        _, metrics = gtrain["step"](st, {"tokens": tokens})
+        return float(metrics["loss"])
+
+    def trainer(node_id):
+        phase_done(14)
+        release()
+        return trainer_phase(card, DEVICE, node_id, MODEL, TRAIN_BATCH,
+                             reference_loss,
+                             float(np.median(gtrain["step_s"][1:])) * 1e3)
+
     runtime = runtime_phase(card, DEVICE, MODEL, text,
-                            concurrent_tokens / concurrent_s)
+                            concurrent_tokens / concurrent_s, then=trainer)
     # the task path's count (the argmax check's launches are apart)
     runtime_launches = runtime["node_launches"]["flash_fwd"]
     check(runtime_launches > 0, "K1 was not launched on the runtime's path")
-    phase_done(14)
+    trainer_launches = runtime["then"]["launches"]
+    phase_done(15)
 
     # ------------------------------------------------------ the kernels line
     def kernel_row(name, line, src, launches, err, ms, plain, bound, lib_ms):
@@ -2303,15 +2651,19 @@ def main() -> int:
                 name, line, src, tr["launches"][name],
                 max(train_errs[case][e] for e in errs_of), ms[name],
                 plain[name], bounds[name], lib[name])
-        check(ring_launches[name] > 0 and mesh_launches[name] > 0,
-              f"{name} was not launched on the ring body or the mesh path")
+        check(ring_launches[name] > 0 and mesh_launches[name] > 0
+              and trainer_launches[name] > 0,
+              f"{name} was not launched on the ring body, the mesh path or "
+              "the trainer's worker")
         row = dict(rows["gpt2"])
         row["launches"] = (rows["gpt2"]["launches"] + rows["llama"]["launches"]
-                           + ring_launches[name] + mesh_launches[name])
+                           + ring_launches[name] + mesh_launches[name]
+                           + trainer_launches[name])
         row["launches_by_path"] = {"gpt2": rows["gpt2"]["launches"],
                                    "llama": rows["llama"]["launches"],
                                    "ring": ring_launches[name],
-                                   "mesh": mesh_launches[name]}
+                                   "mesh": mesh_launches[name],
+                                   "trainer": trainer_launches[name]}
         row["llama1b"] = rows["llama"]
         kernels.append(row)
     log(f"total {time.perf_counter() - t_start:.1f} s")

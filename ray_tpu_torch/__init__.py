@@ -22,7 +22,8 @@ hand their attention to hand-written CUDA flash-attention kernels:
   attention, the pipeline and the Mixture-of-Experts layer;
 - ``ray_tpu_torch.llm``: ``LLMConfig``, ``DecodeEngine``, sampling, the
   OpenAI surface;
-- ``ray_tpu_torch.train``: the train and eval steps.
+- ``ray_tpu_torch.train``: the train layer (trainers, controller, worker
+  group, checkpoints, train collectives) and the train and eval steps.
 
 Entry points of the models take ``device=`` (default ``"cuda"``) and raise
 when CUDA is absent unless the caller asks for ``"cpu"``. The LLM names are

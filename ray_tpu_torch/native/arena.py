@@ -19,6 +19,7 @@ import ctypes
 import logging
 import os
 import struct
+import threading
 import time
 import weakref
 from typing import List, Optional
@@ -125,6 +126,15 @@ class NativeArenaStore:
         # Insertion-ordered (dict): creation order doubles as the
         # spill-eviction order (oldest first).
         self._created: dict = {}
+        # Windows that get_frames exported and that are still alive, and
+        # whether close_all ran: the mapping is unmapped once both say so.
+        # The lock guards only these counters: no call into the library is
+        # made under it. It is reentrant because a view's finalizer can run
+        # inside another's (the cyclic GC may start on any allocation).
+        self._views = 0
+        self._closed = False
+        self._detached = False
+        self._views_lock = threading.RLock()
 
     # -- store interface ----------------------------------------------------
 
@@ -185,11 +195,13 @@ class NativeArenaStore:
         # The pin taken by rt_obj_get is released when the last view into this
         # window is GC'd — deserialized arrays alias arena memory, so the
         # block must not be reused while any of them is alive. (Reference:
-        # plasma client buffers release on destruction.) atexit=False: at
-        # interpreter exit the arena is torn down wholesale anyway.
-        fin = weakref.finalize(
-            arr, self._lib.rt_obj_release, self._h, object_hex.encode()
-        )
+        # plasma client buffers release on destruction.) The window is also
+        # counted: after close_all the mapping stays until the last one dies.
+        # atexit=False: at interpreter exit the arena is torn down wholesale
+        # anyway.
+        with self._views_lock:
+            self._views += 1
+        fin = weakref.finalize(arr, self._view_died, object_hex.encode())
         fin.atexit = False
         buf = memoryview(arr).cast("B")
         nframes = _HDR_COUNT.unpack_from(buf, 0)[0]
@@ -222,10 +234,37 @@ class NativeArenaStore:
         # released by the buffer finalizers when the views die.
 
     def close_all(self):
+        """Session teardown: delete this process's objects, unlink the
+        arena if this process created it, and unmap it, at once when no
+        window that ``get_frames`` exported is alive, else when the last one
+        dies (a view kept past ``shutdown()`` stays readable)."""
         for hex_ in list(self._created):
             self.free(hex_)
         if self.created_arena:
             self._lib.rt_arena_unlink(self.name.encode())
+        with self._views_lock:
+            self._closed = True
+            detach = self._take_detach_locked()
+        if detach:
+            self._lib.rt_arena_detach(self._h)
+
+    def _view_died(self, object_hex: bytes) -> None:
+        # The view still counts while its pin is released, so the arena
+        # cannot be unmapped under the release.
+        self._lib.rt_obj_release(self._h, object_hex)
+        with self._views_lock:
+            self._views -= 1
+            detach = self._take_detach_locked()
+        if detach:
+            self._lib.rt_arena_detach(self._h)
+
+    def _take_detach_locked(self) -> bool:
+        """Whether the caller is to unmap the arena now (once, after
+        close_all, with no view alive)."""
+        if self._closed and self._views == 0 and not self._detached:
+            self._detached = True
+            return True
+        return False
 
     # -- helpers ------------------------------------------------------------
 

@@ -384,6 +384,13 @@ _PORT_MODULES = [
     "ray_tpu_torch.util.events", "ray_tpu_torch.util.tracing",
     "ray_tpu_torch.util.tracing.tracing_helper",
     "ray_tpu_torch.util.scheduling_strategies",
+    # the train layer
+    "ray_tpu_torch.train.config", "ray_tpu_torch.train.checkpoint",
+    "ray_tpu_torch.train.result", "ray_tpu_torch.train.context",
+    "ray_tpu_torch.train.failure_policy", "ray_tpu_torch.train.scaling_policy",
+    "ray_tpu_torch.train.collective", "ray_tpu_torch.train.worker_group",
+    "ray_tpu_torch.train.controller", "ray_tpu_torch.train.trainer",
+    "ray_tpu_torch.train.torch",
 ]
 
 
