@@ -81,8 +81,8 @@ Phases, in order; any failure exits non-zero:
    argmax over the full forward through K1; the bf16 engine answers phase
    4's requests, with phase 4's numbers.
 9. Llama training: the ``llama-1b`` preset (rope_theta 500000) at its
-   published widths, its depth cut from 16 layers to 8 (phase 15's
-   time), at B=8, T=2048, bf16 over f32 parameters, remat
+   published widths, its depth cut from 16 layers to 4 (the time of
+   phases 15 and 16), at B=8, T=2048, bf16 over f32 parameters, remat
    "dots", 12 compiled steps with phase 5's checks: finite losses, the
    first within 0.5 of ln(32000), a falling loss, per step L launches
    each of K2, K3 and K4 and none of K1, no recompile; then 6 eager
@@ -139,7 +139,9 @@ Phases, in order; any failure exits non-zero:
     ``num_gpus=0.5, max_concurrency=16`` actor wraps ``LLMServer`` over the
     same reference, capturing its graphs while a task runs forwards on the
     card in another thread of the node; its 16 concurrent greedy
-    completions each equal argmax over the full forward through K1. (d)
+    completions each equal argmax over the full forward through K1. K1's
+    count on node 0 is the tasks' forwards, the warm-up calls of the
+    actor's prefill programs, and L a replay of them. (d)
     1,000 empty tasks and 1,000 actor calls a second, put + get GB/s of a
     256 MiB f32 CPU tensor and of a 256 MiB bf16 CUDA tensor (staged), the
     actor's tokens/s beside phase 12's, the seconds to spawn a node. (e)
@@ -162,9 +164,32 @@ Phases, in order; any failure exits non-zero:
     seconds and Inductor's FX graph cache hits and misses in the worker,
     checkpoint save and load seconds and bytes, the worker's peak memory,
     the phase's seconds.
+16. Serve on the card, in a session of its own (head and 2 nodes of 8
+    CPUs, the card node 0's ``GPU``, 512 MiB arenas): ``serve_llm`` deploys the
+    OpenAI app over phase 12's weights (GPT-2 small, f32, read from a
+    ``model_source`` bundle written in phase 12) on one replica with
+    ``num_gpus=1`` and ``device="cuda"``; the HTTP proxy answers 16 mixed
+    completions at once (phase 12's payloads) and a ``stream: true``
+    completion, a ``DeploymentHandle`` one with logprobs. The greedy
+    answers, the stream and the handle's tokens equal phase 12's
+    in-process ``LLMServer``'s. Then ``build_pd_openai_app`` with a
+    prefill and a decode replica at ``num_gpus=0.5`` each on the card:
+    its answer equals the monolithic app's, once the first replica's
+    engine is gone from node 0's process. K1's count there, set to 0 when
+    each app is ready and read after its requests, is L a prefill replay
+    of its engines. Printed: tokens/s over HTTP
+    beside phase 12's and phase 14's, the seconds from ``serve.run`` to a
+    ready replica. After ``serve.shutdown()`` and ``shutdown()`` no node
+    process (the replicas, the proxy and the controller are threads in
+    them) and no shm segment of the session is left; the phase takes at
+    most 150 s.
 
-Launch counts are set to 0 just before each main path and read just
-after it: K1's before phase 3 and after phase 4 (GPT-2 serving), before
+The engines' prefill programs attend through K1 (a new prompt attends to
+itself, ``forward_cached(fresh=True)``): K1's wrapper launches it in the
+warm-up calls; while a graph is captured it launches nothing and adds to
+the capture's record instead, and each replay adds that record
+(``ops.attention.recorded``, ``llm.programs.Program``). Launch counts are
+set to 0 just before each main path and read just after it: K1's before phase 3 and after phase 4 (GPT-2 serving), before
 and after phase 8 (llama serving) and phase 12 (the OpenAI surface, where
 K1 runs the full-forward yardstick); K2-K4's before and after the 12 steps
 of phase 5 (GPT-2) and of phase 9 (llama); K1's before and after the two
@@ -174,7 +199,9 @@ mesh eval step; phase 14's K1 count lives in node 0's process (its tasks
 and its actor are threads there): its first task sets it to 0, the actor
 reads it after the completions; phase 15's K2-K4 counts live there too,
 set to 0 by a task on node 0 just before ``fit()`` and read by one just
-after it. The engines' programs count
+after it; phase 16's K1 count lives in node 0's process of its own
+session, where the replicas run: a task there sets it to 0 once each app
+is ready and reads it after that app's requests. The engines' programs count
 their graph replays; each must replay on its main path. The last lines are the card, the
 ``kernels`` JSON line and the result line. It imports nothing of JAX and
 nothing of ``ray_tpu``.
@@ -188,8 +215,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from types import SimpleNamespace
@@ -213,12 +242,12 @@ EAGER_STEPS = 6
 # as LLMConfig(model_family="llama") builds it (rope_theta and mlp_dim at
 # LlamaConfig's defaults, as in JAX), trained as the preset itself, cut to
 # LLAMA_TRAIN_LAYERS of its 16 layers in phases 9 and 13 (their compiles
-# take most of their time, and phase 15 needs the room).
+# take most of their time, and phases 15 and 16 need the room).
 LLAMA_ENGINE = dict(model_family="llama", vocab_size=32000, max_seq_len=4096,
                     num_layers=16, num_heads=32, num_kv_heads=8,
                     embed_dim=2048)
 LLAMA_TRAIN_BATCH = (8, 2048)
-LLAMA_TRAIN_LAYERS = 8
+LLAMA_TRAIN_LAYERS = 4
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -248,9 +277,15 @@ CASES = [
     ("entry", 2, 256, 12, 12, 64, True, "bfloat16", False),
     ("entry", 2, 256, 12, 12, 64, True, "float32", False),
     ("entry-fused-qkv", 2, 256, 12, 12, 64, True, "bfloat16", True),
+    # The engines' prefill programs (one prompt a bucket of
+    # PREFILL_BUCKETS): GPT-2 small's heads in both dtypes (phases 4, 12,
+    # 14 and 16 serve f32), llama-1b's (phase 8) further down.
     ("bucket64", 1, 64, 12, 12, 64, True, "bfloat16", False),
+    ("bucket64", 1, 64, 12, 12, 64, True, "float32", False),
     ("bucket128", 1, 128, 12, 12, 64, True, "bfloat16", False),
+    ("bucket128", 1, 128, 12, 12, 64, True, "float32", False),
     ("bucket256", 1, 256, 12, 12, 64, True, "bfloat16", False),
+    ("bucket256", 1, 256, 12, 12, 64, True, "float32", False),
     ("ragged96", 1, 96, 12, 12, 64, True, "bfloat16", False),
     ("ragged96", 1, 96, 12, 12, 64, True, "float32", False),
     ("ragged1000", 1, 1000, 12, 12, 64, True, "bfloat16", False),
@@ -280,6 +315,12 @@ CASES = [
     # (K3 sums dK/dV over all four), and llama-8b's head shape at D=128.
     ("llama1b-serve", 2, 256, 32, 8, 64, True, "bfloat16", False),
     ("llama1b-serve", 2, 256, 32, 8, 64, True, "float32", False),
+    ("llama1b-bucket64", 1, 64, 32, 8, 64, True, "bfloat16", False),
+    ("llama1b-bucket64", 1, 64, 32, 8, 64, True, "float32", False),
+    ("llama1b-bucket128", 1, 128, 32, 8, 64, True, "bfloat16", False),
+    ("llama1b-bucket128", 1, 128, 32, 8, 64, True, "float32", False),
+    ("llama1b-bucket256", 1, 256, 32, 8, 64, True, "bfloat16", False),
+    ("llama1b-bucket256", 1, 256, 32, 8, 64, True, "float32", False),
     ("llama1b-train", 8, 2048, 32, 8, 64, True, "bfloat16", False),
     ("llama8b-d128", 1, 1024, 32, 8, 128, True, "bfloat16", False),
 ]
@@ -542,6 +583,7 @@ def runtime_phase(card, device, model_kw, text, phase12_tok_s, then=None):
     import ray_tpu_torch as rt
     from ray_tpu_torch._private.config import rt_config
     from ray_tpu_torch.llm import LLMConfig
+    from ray_tpu_torch.llm import programs as rt_programs
     from ray_tpu_torch.models import common, gpt2
     from ray_tpu_torch.native import arena as native_arena
     from ray_tpu_torch.util.scheduling_strategies import (
@@ -762,6 +804,9 @@ def runtime_phase(card, device, model_kw, text, phase12_tok_s, then=None):
 
                 return dict(attn.launches)
 
+            def prefill_replays(self):
+                return sum(p.replays for p in self.srv.engine._prefill.values())
+
             def shutdown(self):
                 self.srv.engine.shutdown()
 
@@ -786,17 +831,23 @@ def runtime_phase(card, device, model_kw, text, phase12_tok_s, then=None):
             pass
         busy_forwards = rt.get(busy)
         shutil.rmtree(stop_dir, ignore_errors=True)
-        # K1 on the path: the task's two forwards and the busy task's; the
-        # actor serves from its graphed engine, whose programs attend
-        # without K1 (forward_cached), so it adds none
+        # K1 on the path: the task's two forwards, the busy task's, the
+        # actor's engine build (each prefill program attends through K1: the
+        # warm-up calls per bucket launch it; the capture records it) and
+        # the replays of its prefill programs, which launch what the capture
+        # recorded
         L = cfg.num_layers
         out["node_launches"] = rt.get(server.launches.remote())
         path_k1 = out["node_launches"]["flash_fwd"]
+        build_k1 = rt_programs._WARMUP * len(PREFILL_BUCKETS) * L
+        replays_k1 = L * rt.get(server.prefill_replays.remote())
         log(f"K1 launches on node 0's path: {path_k1} (task 2 x {L}, busy "
-            f"task {busy_forwards} x {L}, actor's serving 0)")
-        check(path_k1 == 2 * L + L * busy_forwards,
+            f"task {busy_forwards} x {L}, the actor's engine build "
+            f"{build_k1}, its prefill replays {replays_k1})")
+        want_k1 = 2 * L + L * busy_forwards + build_k1 + replays_k1
+        check(path_k1 == want_k1 and replays_k1 >= L * len(payloads),
               f"node 0 launched K1 {path_k1} times on the path, want "
-              f"{2 * L + L * busy_forwards}")
+              f"{want_k1} (prefill replays x {L}: {replays_k1})")
         expect = rt.get(server.forward_argmax.remote(
             [p["prompt"] for p in payloads], 32))
         out["check_launches"] = (rt.get(server.launches.remote())["flash_fwd"]
@@ -895,6 +946,262 @@ def runtime_phase(card, device, model_kw, text, phase12_tok_s, then=None):
         f"objects) {segs} remain")
     check(not left and not segs, f"shutdown() left node processes {left} or "
           f"shm segments {segs}")
+    return out
+
+
+# Phase 16: Serve on the card, in a session of its own. Its arenas hold
+# requests, responses and the PD app's transferred KV state (~75 MB a
+# request at GPT-2 small's 1024 positions in f32), never the weights, which
+# the replicas read from phase 12's bundle on disk.
+SERVE_ARENA_BYTES = 512 << 20
+SERVE_PHASE_S = 150.0
+
+
+def write_bundle(params, path):
+    """``params`` (a GPT-2 module or tree of tensors) as a ``model_source``
+    bundle: the JAX package's tree of numpy arrays, which the engine loads
+    through ``convert.params_from_numpy``."""
+    import pickle
+
+    from ray_tpu_torch.models import common
+
+    tree = {k: ({n: p.detach().cpu().numpy() for n, p in v.items()}
+                if isinstance(v, dict) else v.detach().cpu().numpy())
+            for k, v in common.param_tree(params).items()}
+    with open(path, "wb") as f:
+        pickle.dump({"params": tree}, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def http_json(port, path, payload, timeout=300):
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.headers.get("Content-Type", ""), r.read().decode()
+
+
+def serve_phase(card, device, cfg_dict, ref, phase12_tok_s, phase14_tok_s):
+    """Phase 16: ``serve_llm`` deploys the OpenAI app (GPT-2 small, f32, the
+    weights of phase 12 from ``ref["model_source"]``) on one replica that
+    holds node 0's ``GPU``; requests arrive through the HTTP proxy (16
+    mixed completions at once and a stream) and a ``DeploymentHandle``.
+    Greedy answers equal phase 12's in-process ``LLMServer``'s (``ref``).
+    Then ``build_pd_openai_app``: a prefill and a decode replica at
+    ``num_gpus=0.5`` each on the card, whose greedy answer equals the
+    monolithic app's. K1 is counted in node 0's process, where the replicas
+    run: it is set to 0 there once each app is ready and read after its
+    requests, which launch it L times a prefill replay. After
+    ``serve.shutdown()`` and ``shutdown()`` no process of the session is
+    left."""
+    import dataclasses
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMConfig, build_pd_openai_app, serve_llm
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy as Pin,
+    )
+
+    t_phase = time.perf_counter()
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    saved = os.environ.get("RT_ARENA_BYTES")
+    os.environ["RT_ARENA_BYTES"] = str(SERVE_ARENA_BYTES)
+    out = {}
+    config = LLMConfig.from_dict(dict(cfg_dict, model_source=ref["model_source"]))
+    try:
+        # each replica, proxy and controller holds a CPU while it lives
+        rt.init(num_cpus=8, num_nodes=2)
+    finally:
+        if saved is None:
+            os.environ.pop("RT_ARENA_BYTES", None)
+        else:
+            os.environ["RT_ARENA_BYTES"] = saved
+    cluster = rt._internal_cluster()
+    try:
+        gpu_nodes = [n["node_id"] for n in rt.nodes()
+                     if n["alive"] and n["resources"].get("GPU")]
+        check(len(gpu_nodes) == 1, f"GPU nodes {gpu_nodes}")
+
+        @rt.remote
+        def card_counts(reset):
+            """K1's count in this node's process (set to 0 first when
+            ``reset``), the prefill replays of each engine alive there
+            (after a collection: none is kept only by a cycle), and the
+            device memory allocated there."""
+            import gc
+
+            import torch
+
+            from ray_tpu_torch.llm.engine import DecodeEngine
+            from ray_tpu_torch.ops import attention as attn
+
+            if reset:
+                for name in attn.launches:
+                    attn.launches[name] = 0
+            gc.collect()
+            engines = [o for o in gc.get_objects()
+                       if type(o) is DecodeEngine]
+            return dict(attn.launches), [
+                {"device": str(e.device),
+                 "prefill": sum(p.replays for p in e._prefill.values()),
+                 "decode": e._decode.replays} for e in engines
+            ], torch.cuda.memory_allocated()
+
+        # no CPU: the replicas, the proxy and the controller may hold them all
+        on_card = card_counts.options(
+            num_cpus=0, scheduling_strategy=Pin(gpu_nodes[0]))
+        _, _, mem0 = rt.get(on_card.remote(True), timeout=60)
+        L = config.model_config().num_layers
+
+        def ready_counts():
+            """Set K1's count in node 0's process to 0 once an app is
+            ready; its engines' prefill replays so far."""
+            _, engines, _ = rt.get(on_card.remote(True), timeout=60)
+            return sum(e["prefill"] for e in engines)
+
+        def served_k1(what, at_ready, n_engines):
+            """K1's launches in node 0's process since the app was ready:
+            exactly L a prefill replay of its engines since then, which the
+            requests caused."""
+            counts, engines, mem = rt.get(on_card.remote(False), timeout=60)
+            replays = sum(e["prefill"] for e in engines) - at_ready
+            log(f"K1 launches in node 0's process (the replicas') on the "
+                f"{what}'s requests: {counts['flash_fwd']} ({replays} prefill "
+                f"replays x {L}); its engines {engines}, "
+                f"{mem / 1e9:.3f} GB allocated")
+            check(len(engines) == n_engines and all(
+                e["device"].startswith("cuda") for e in engines),
+                f"the {what}'s engines in node 0's process: {engines}")
+            check(replays > 0 and counts["flash_fwd"] == L * replays,
+                  f"the {what}'s requests launched K1 {counts['flash_fwd']} "
+                  f"times in the replicas' process, want {L} x {replays} "
+                  "prefill replays")
+            return counts["flash_fwd"], replays
+
+        # (a) the monolithic app through serve_llm: one replica on the card
+        mono = dataclasses.replace(config, deployment_config={
+            "ray_actor_options": {"num_gpus": 1}})
+        t0 = time.perf_counter()
+        handle = serve_llm(mono, device=device)
+        out["ready_s"] = time.perf_counter() - t0
+        st = serve.status()
+        check(st.get("LLMServer", {}).get("running") == 1,
+              f"serve_llm's replica is not running: {st}")
+        port = serve.start_http_proxy(port=0)
+        log(f"[{card}] serve_llm: replica ready {out['ready_s']:.2f} s after "
+            f"serve.run; HTTP proxy on port {port}")
+        at_ready = ready_counts()
+
+        payloads, answers = ref["mixed"]
+        with ThreadPoolExecutor(len(payloads)) as pool:
+            t0 = time.perf_counter()
+            got = list(pool.map(
+                lambda p: json.loads(http_json(port, "/v1/completions", p)[1]),
+                payloads))
+            http_s = time.perf_counter() - t0
+        tokens = sum(a["usage"]["completion_tokens"] for a in got)
+        out["http_tok_s"] = tokens / http_s
+        greedy = [i for i, p in enumerate(payloads) if "temperature" not in p]
+        seeded = [i for i, p in enumerate(payloads) if "seed" in p]
+        for i in greedy:
+            check(got[i]["choices"] == answers[i]["choices"]
+                  and got[i]["usage"] == answers[i]["usage"],
+                  f"HTTP greedy completion {i}: {got[i]['choices']} != "
+                  f"phase 12's in-process {answers[i]['choices']}")
+        same_seeded = sum(got[i]["choices"] == answers[i]["choices"]
+                          for i in seeded)
+        log(f"[{card}] Serve over HTTP: 16 concurrent completions, {tokens} "
+            f"tokens in {http_s:.3f} s = {out['http_tok_s']:.1f} tok/s "
+            f"(phase 12 in-process: {phase12_tok_s:.1f} tok/s; phase 14's "
+            f"actor: {phase14_tok_s:.1f} tok/s); the {len(greedy)} greedy "
+            "ones equal phase 12's in-process answers, the seeded top-k ones "
+            f"{same_seeded} of {len(seeded)}")
+
+        payload, streamed = ref["stream"]
+        ctype, body = http_json(port, "/v1/completions",
+                                dict(payload, stream=True))
+        lines = [ln + "\n\n" for ln in body.split("\n\n") if ln]
+        joined = "".join(json.loads(ln[len("data: "):])["choices"][0]["text"]
+                         for ln in lines[:-1])
+        log(f"Serve stream over HTTP ({ctype}): {len(lines) - 1} chunks, "
+            f"joined {joined!r}")
+        check(ctype.startswith("text/event-stream")
+              and lines[-1] == "data: [DONE]\n\n" and joined == streamed,
+              f"HTTP stream {joined!r} != phase 12's stream {streamed!r}")
+
+        payload, want, text = ref["single"]
+        resp = handle.remote(payload).result(timeout=300)
+        mono_tokens = resp["choices"][0]["logprobs"]["tokens"]
+        log(f"Serve handle completion {resp['choices'][0]['text']!r}, tokens "
+            f"{mono_tokens}")
+        check(mono_tokens == want and resp["choices"][0]["text"] == text,
+              f"handle completion tokens {mono_tokens} != phase 12's {want}")
+
+        mono_k1, replays = served_k1("monolithic app", at_ready, 1)
+        check(replays >= len(payloads) + 2, f"{replays} prefill replays for "
+              f"{len(payloads) + 2} requests")
+
+        # (b) the PD app: a prefill and a decode replica on the one card,
+        # once the monolithic replica has stopped and let go of its engine
+        serve.delete("llm")
+        t_end = time.monotonic() + 30
+        while True:
+            _, engines, mem = rt.get(on_card.remote(False), timeout=60)
+            if not engines or time.monotonic() > t_end:
+                break
+            time.sleep(0.5)
+        log(f"after serve.delete('llm'): engines in node 0's process "
+            f"{engines}; {mem / 1e9:.3f} GB allocated there (before "
+            f"serve_llm: {mem0 / 1e9:.3f} GB)")
+        check(not engines, f"the deleted replica's engine lives on: {engines}")
+        pd = dataclasses.replace(config, deployment_config={
+            "ray_actor_options": {"num_gpus": 0.5}})
+        t0 = time.perf_counter()
+        try:
+            pd_handle = serve.run(build_pd_openai_app(pd, device=device),
+                                  name="pd", route_prefix="/pd")
+            st = serve.status()
+            out["pd_ready_s"] = time.perf_counter() - t0
+            check(all(st.get(n, {}).get("running") == 1
+                      for n in ("pd_prefill", "pd_decode", "pd_ingress")),
+                  f"the PD app's replicas are not running: {st}")
+            at_ready = ready_counts()
+            split = pd_handle.remote(payload).result(timeout=300)
+        except Exception as e:
+            raise SmokeFailure(f"the PD app with two num_gpus=0.5 replicas "
+                               f"on one card failed: {type(e).__name__}: {e}")
+        log(f"[{card}] PD app ready in {out['pd_ready_s']:.2f} s: "
+            f"{split['choices'][0]['text']!r}, tokens "
+            f"{split['choices'][0]['logprobs']['tokens']}")
+        check(split.get("disaggregated") is True
+              and split["choices"] == resp["choices"]
+              and split["usage"] == resp["usage"],
+              f"the PD app's answer {split} != the monolithic app's {resp}")
+        pd_k1, _ = served_k1("PD app", at_ready, 2)
+        out["launches"] = mono_k1 + pd_k1
+    finally:
+        pids = [n.proc.pid for n in (*cluster.nodes, *cluster.warm)]
+        head_port = cluster.gcs_addr[1]
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+    t_end = time.monotonic() + 15
+    while time.monotonic() < t_end and any(
+            session_leftovers(pids, head_port, [])):
+        time.sleep(0.2)
+    left, segs = session_leftovers(pids, head_port, [])
+    log(f"after serve.shutdown() and shutdown(): of the session's node "
+        f"processes {pids} {left} run; of its shm segments {segs} remain")
+    check(not left and not segs, f"Serve's session left node processes "
+          f"{left} or shm segments {segs}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{card}] phase 16: {out['phase_s']:.1f} s (limit {SERVE_PHASE_S:g})")
+    check(out["phase_s"] <= SERVE_PHASE_S,
+          f"phase 16 took {out['phase_s']:.1f} s")
     return out
 
 
@@ -1558,7 +1865,7 @@ def main() -> int:
                 got, got_cache = prog(tokens=toks, start=start)
                 ref, ref_cache = mod.forward_cached(
                     eng.params, toks, mod.init_kv_cache(cfg, 1, S, device=dev),
-                    start, cfg)
+                    start, cfg, fresh=True)
                 compare(f"prefill{b}", got, ref, got_cache, ref_cache)
         log(f"{label}: {len(programs(eng))} programs' graphs against eager "
             f"forward_cached on the f32 parameters: max|graph-eager| "
@@ -1660,7 +1967,8 @@ def main() -> int:
                     call_ms=cuda_ms(lambda: prog(tokens=toks, start=start),
                                     iters=20),
                     eager_ms=cuda_ms(lambda: mod.forward_cached(
-                        eng.params, toks, cache1, start, cfg), iters=10))
+                        eng.params, toks, cache1, start, cfg, fresh=True),
+                        iters=10))
             del cache1
         row = np.random.RandomState(1).randn(vocab).astype(np.float32)
         sample_ms = {}
@@ -2304,9 +2612,13 @@ def main() -> int:
           "LLMServer's engine runs uncaptured programs")
     tok = srv.engine.tokenizer
     prompt = "The OpenAI surface of the port, on the card: "
-    resp = srv.completions({"prompt": prompt, "max_tokens": 16, "logprobs": 2})
+    single = {"prompt": prompt, "max_tokens": 16, "logprobs": 2}
+    resp = srv.completions(single)
     choice, usage = resp["choices"][0], resp["usage"]
     lp, n = choice["logprobs"], usage["completion_tokens"]
+    # what phase 16 serves again through Serve, on the same weights
+    serve_ref = {"single": (single, lp["tokens"], choice["text"]),
+                 "cfg_dict": cfg_dict}
     expect = forward_argmax(gpt2, srv.engine, tok.encode(prompt), 16)
     log(f"LLMServer completion {choice['text']!r}, tokens {lp['tokens']}")
     check(n >= 1 and lp["tokens"] == expect[:n],
@@ -2341,6 +2653,7 @@ def main() -> int:
     log(f"LLMServer stream: {len(lines) - 1} chunks, joined {streamed!r}")
     check(lines[-1] == "data: [DONE]\n\n" and streamed == whole and whole,
           f"stream {streamed!r} != completion {whole!r}")
+    serve_ref["stream"] = (payload, streamed)
 
     # Prefill/decode disaggregation: two more engines on the card, behind
     # in-process handles; a seeded stochastic request equals the
@@ -2406,6 +2719,10 @@ def main() -> int:
     concurrent_tokens = sum(a["usage"]["completion_tokens"] for a in answers)
     check(all(a["usage"]["completion_tokens"] >= 1 for a in answers),
           "a concurrent completion returned nothing")
+    serve_ref["mixed"] = (payloads, answers)
+    serve_dir = tempfile.mkdtemp(prefix="phase16_")
+    serve_ref["model_source"] = os.path.join(serve_dir, "gpt2_small.pkl")
+    write_bundle(sparams, serve_ref["model_source"])
     srv.engine.shutdown()
     serving_launches = attn.launches["flash_fwd"]
     del srv, sparams
@@ -2599,6 +2916,17 @@ def main() -> int:
     trainer_launches = runtime["then"]["launches"]
     phase_done(15)
 
+    # ------------------------------------------------ 16. Serve on the card
+    release()
+    try:
+        serving16 = serve_phase(card, DEVICE, serve_ref["cfg_dict"], serve_ref,
+                                concurrent_tokens / concurrent_s,
+                                runtime["actor_tok_s"])
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
+    serve_launches = serving16["launches"]
+    phase_done(16)
+
     # ------------------------------------------------------ the kernels line
     def kernel_row(name, line, src, launches, err, ms, plain, bound, lib_ms):
         return {
@@ -2624,13 +2952,15 @@ def main() -> int:
     # the main paths, "launches_by_path" each.
     row = kernel_row("flash_fwd", 73, "flash_fwd.cu",
                      main_launches + llama_k1_launches + serving_launches
-                     + eval_launches + mesh_eval_launches + runtime_launches,
+                     + eval_launches + mesh_eval_launches + runtime_launches
+                     + serve_launches,
                      case_err("entry"),
                      k1["ms"], k1["plain_ms"], k1["bound"], k1["sdpa_ms"])
     row["launches_by_path"] = {"gpt2": main_launches, "llama": llama_k1_launches,
                                "serving": serving_launches, "eval": eval_launches,
                                "mesh_eval": mesh_eval_launches,
-                               "runtime": runtime_launches}
+                               "runtime": runtime_launches,
+                               "serve": serve_launches}
     row["llama1b"] = kernel_row(
         "flash_fwd", 73, "flash_fwd.cu", llama_k1_launches,
         case_err("llama1b-serve"), k1_llama["ms"], k1_llama["plain_ms"],

@@ -145,7 +145,7 @@ def main(argv=None):
     if args.dashboard_port >= 0:
         raise NotImplementedError(
             "the dashboard is not ported to ray_tpu_torch yet (ROADMAP "
-            "queue 1 item 8); pass --dashboard-port -1")
+            "queue 1 item 12); pass --dashboard-port -1")
 
     node = None
     if args.num_cpus > 0:

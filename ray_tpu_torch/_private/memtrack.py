@@ -543,7 +543,7 @@ def memory_summary(address: Optional[str] = None,
     client (``util.state``) is not ported yet."""
     raise NotImplementedError(
         "memory_summary needs util.state, which is not ported to "
-        "ray_tpu_torch yet (ROADMAP queue 1 item 5)")
+        "ray_tpu_torch yet (ROADMAP queue 1 item 2)")
 
 
 # ------------------------------------------------------------- rendering

@@ -87,10 +87,10 @@ def _lineage_bytes_limit() -> int:
 # runtime_env (env_vars, working_dir, py_modules, pip/uv/conda, containers)
 # is not ported yet.
 _RUNTIME_ENV_TODO = ("runtime_env is not ported to ray_tpu_torch yet "
-                     "(ROADMAP queue 1 item 5)")
+                     "(ROADMAP queue 1 item 1)")
 
 _DEBUG_TODO = ("util.debug profiling is not ported to ray_tpu_torch yet "
-               "(ROADMAP queue 1 item 5)")
+               "(ROADMAP queue 1 item 6)")
 
 INLINE_OBJECT_MAX = 100 * 1024  # small objects travel inline / live in memory store
 FN_NS = "fn"

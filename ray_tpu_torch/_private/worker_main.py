@@ -125,6 +125,15 @@ def main(argv=None):
     try:
         loop.run_forever()
     finally:
+        # A node stops here, on SIGTERM, without the driver's teardown: drop
+        # the /dev/shm names of the rings it created to reach its peers
+        # (the mappings go with the process; the names would stay).
+        for rc in list(core._ring_peers.values()):
+            if rc is not False:
+                try:
+                    rc.ring.unlink_name()
+                except Exception:
+                    pass
         if prof is not None:
             prof.disable()
             try:

@@ -85,7 +85,7 @@ class ActorMethod:
             )
         raise NotImplementedError(
             "bind() needs the DAG layer, which is not ported to "
-            "ray_tpu_torch yet (ROADMAP queue 1 item 6)")
+            "ray_tpu_torch yet (ROADMAP queue 1 item 10)")
 
     def remote(self, *args, **kwargs):
         worker = get_global_worker()

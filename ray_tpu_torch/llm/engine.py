@@ -177,8 +177,14 @@ class DecodeEngine:
         # insert overwrites whole, prefill's in the slot cache, which every
         # full prefill zeroes first.
         def prefill(tokens, start):
+            # a new prompt at position 0: it attends to itself, causally,
+            # through K1 on the card
+            return model.forward_cached(run, tokens, slot_cache, start, cfg,
+                                        fresh=True)
+
+        def prefill_from(tokens, start):
             # start > 0 = continuation from a cached prefix: only the
-            # prompt's tail runs through the model.
+            # prompt's tail runs through the model, attending the cache.
             return model.forward_cached(run, tokens, slot_cache, start, cfg)
 
         def decode(tokens, lens):
@@ -203,6 +209,11 @@ class DecodeEngine:
             b: Program(prefill, inputs(1, b, "start"))
             for b in config.prefill_buckets
         }
+        # Only a partial prefix-cache hit continues a prompt past position
+        # 0: its bucket's program is captured at the first such hit.
+        self._prefill_from = {}
+        self._new_prefill_from = lambda b: Program(
+            prefill_from, inputs(1, b, "start"))
         self._decode = Program(decode, inputs(B, 1, "lens"))
         self._decode_spec = (
             Program(decode_all, inputs(B, 1 + self._spec_k, "lens"))
@@ -398,13 +409,16 @@ class DecodeEngine:
             Tpad = self._bucket(len(rem))
             toks = np.zeros((1, Tpad), np.int64)
             toks[0, : len(rem)] = rem
+            prog = self._prefill_from.get(Tpad)
+            if prog is None:   # its capture writes the slot cache: first
+                prog = self._prefill_from[Tpad] = self._new_prefill_from(Tpad)
             # The entry's cache is shared by every entry of that prefill
             # (and may be in use by an exact hit): the program runs in the
             # static slot cache, loaded with a copy of it.
             with torch.no_grad():
                 for k, v in self._slot_cache.items():
                     v.copy_(entry["cache"][k])
-            logits, cache1 = self._prefill[Tpad](
+            logits, cache1 = prog(
                 tokens=toks, start=np.full((1,), matched, np.int64)
             )
             logits_np = logits.cpu().numpy()[0]

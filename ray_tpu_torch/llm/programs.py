@@ -20,6 +20,8 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
+from ray_tpu_torch.ops import attention
+
 # Eager calls before capture, as CUDA's graph recipe asks: they run lazy
 # initialisation (cuBLAS handles and workspaces) outside the capture.
 _WARMUP = 3
@@ -41,7 +43,9 @@ class Program:
     ``buffers`` are the inputs, by name, at their fixed shapes and dtypes;
     their values at construction are the ones warm-up and capture run on.
     A capture that fails raises: nothing falls back to eager calls on the
-    card. ``replays`` counts the graph's replays."""
+    card. ``replays`` counts the graph's replays; ``launches`` holds the
+    hand-written kernels' launches that one replay makes, which each replay
+    adds to ``attention.launches``."""
 
     def __init__(self, fn: Callable[..., Any],
                  buffers: Dict[str, torch.Tensor]):
@@ -49,6 +53,7 @@ class Program:
         self.buffers = buffers
         self.graph = None
         self.replays = 0
+        self.launches = {}
         device = next(iter(buffers.values())).device
         if device.type == "cuda":
             self._capture()
@@ -65,7 +70,8 @@ class Program:
         # Its own memory pool (the default), so replays in any order never
         # overwrite another graph's outputs; thread-local capture, so CUDA
         # calls of other threads (another engine's loop) cannot void it.
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with attention.recorded() as self.launches, torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
             self._out = self.fn(**self.buffers)
         self.graph = graph
 
@@ -81,4 +87,5 @@ class Program:
             return _owned(self.fn(**self.buffers))
         self.graph.replay()
         self.replays += 1
+        attention.count_replay(self.launches)
         return _owned(self._out)

@@ -5,9 +5,8 @@ Counterpart of ``ray_tpu/llm/serving.py`` (reference analog: ``ray.serve.llm``
 (``extract_sampling``), the response envelopes and ``LLMServer`` with
 /v1/completions, /v1/chat/completions, SSE streaming and logprobs, key for
 key the reference's. ``LLMServer`` is plain Python over one
-``DecodeEngine``; it can be called directly or, once the runtime is
-ported, deployed. The Serve app functions (``build_openai_app``,
-``serve_llm``) wait for that runtime.
+``DecodeEngine``; it can be called directly or deployed as a Serve
+replica (``build_openai_app``, ``serve_llm``).
 """
 from __future__ import annotations
 
@@ -16,7 +15,7 @@ import time
 import uuid
 from typing import List
 
-from ray_tpu_torch._private.device import DeviceLike
+from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.llm.config import LLMConfig
 from ray_tpu_torch.llm.engine import DecodeEngine, SamplingParams
 
@@ -78,14 +77,30 @@ def completion_response(config: LLMConfig, prompt_tokens: int,
     }
 
 
-class LLMServer:
-    """One engine replica behind the OpenAI surface (a Serve deployment
-    target once the runtime is ported). ``device`` is the engine's."""
+class EngineServer:
+    """A Serve deployment target over one ``DecodeEngine`` on ``device``,
+    which it shuts down when its replica stops."""
 
     def __init__(self, config_dict: dict, params=None,
                  device: DeviceLike = "cuda"):
         self.config = LLMConfig.from_dict(config_dict)
         self.engine = DecodeEngine(self.config, params=params, device=device)
+
+    def __del__(self):
+        # the replica's stop (Replica.prepare_for_shutdown) or garbage
+        # collection: the engine's loop stops, and its weights, caches and
+        # graphs go with it
+        engine = self.__dict__.pop("engine", None)
+        if engine is not None:
+            engine.shutdown()
+
+    def health_check(self) -> bool:
+        return True
+
+
+class LLMServer(EngineServer):
+    """One engine replica behind the OpenAI surface; the Serve deployment
+    target of ``build_openai_app``. ``device`` is the engine's."""
 
     # serve ingress entry: HTTP payloads from the proxy, or direct dicts
     # from DeploymentHandle calls.
@@ -213,5 +228,31 @@ class LLMServer:
         }) + "\n\n"
         yield "data: [DONE]\n\n"
 
-    def health_check(self) -> bool:
-        return True
+
+def build_openai_app(config: LLMConfig, *, num_replicas: int = 1,
+                     params=None, device: DeviceLike = "cuda"):
+    """Application for ``serve.run(...)`` exposing the OpenAI surface at
+    /v1 (reference: ``ray.serve.llm.build_openai_app``). Each replica
+    builds its engine on ``device``; ``"cuda"`` raises here when CUDA is
+    absent, and a replica that cannot reach the card fails to start, so
+    nothing serves on the CPU unless it is asked for. A replica takes the
+    card through ``config.deployment_config["ray_actor_options"]``
+    (``{"num_gpus": 1}``)."""
+    from ray_tpu_torch import serve
+
+    dev = resolve_device(device)
+    deployment = serve.deployment(
+        num_replicas=num_replicas,
+        max_ongoing_requests=config.max_batch_slots,
+        **config.deployment_config,
+    )(LLMServer)
+    return deployment.bind(config.to_dict(), params, str(dev))
+
+
+def serve_llm(config: LLMConfig, *, name: str = "llm", params=None,
+              route_prefix: str = "/v1", device: DeviceLike = "cuda"):
+    """Deploy ``build_openai_app(config)`` and return its handle."""
+    from ray_tpu_torch import serve
+
+    app = build_openai_app(config, params=params, device=device)
+    return serve.run(app, name=name, route_prefix=route_prefix)

@@ -38,6 +38,7 @@ from torch import nn
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.models import common
+from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.xent import chunked_softmax_xent
 from ray_tpu_torch.parallel.moe import (
     MoEConfig,
@@ -401,13 +402,21 @@ def init_kv_cache(config: GPT2Config, batch: int, max_len: int, dtype=None,
 
 
 def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
-                   start: torch.Tensor, config: GPT2Config):
+                   start: torch.Tensor, config: GPT2Config,
+                   fresh: bool = False):
     """Incremental forward: attend over the KV cache, append new K/V.
 
     tokens [B, T]: a prompt chunk (prefill) or one decode step (T=1);
     start [B] int: absolute position of tokens[:, 0] per sequence. Returns
     (logits [B, T, V] f32, cache). MoE configs route each token through its
     top-k experts; the aux loss is dropped here, as in JAX.
+
+    ``fresh=True`` is the caller's promise that every row starts at
+    position 0 (a new prompt's prefill): the keys a query may see are then
+    exactly the chunk's own, so the chunk attends causally to itself
+    through ``attention(impl="auto")`` (K1 on the card, the dense version
+    on the CPU) instead of densely over all S cache slots. The cache is
+    written as without it.
 
     Unlike the JAX function, this one writes the new K/V into ``cache`` IN
     PLACE and returns the same dict: a copy of the whole cache per decode
@@ -428,8 +437,9 @@ def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
     x = params["wte"][tokens].to(config.dtype)
     x = x + wpe[pos.clamp(0, wpe.shape[0] - 1)].to(config.dtype)
 
-    key_pos = torch.arange(S, device=dev)[None, None, :]               # [1, 1, S]
-    mask = key_pos <= pos[:, :, None]                                   # [B, T, S]
+    if not fresh:   # the dense path masks the cache's S slots
+        key_pos = torch.arange(S, device=dev)[None, None, :]           # [1, 1, S]
+        mask = key_pos <= pos[:, :, None]                               # [B, T, S]
     write = start.clamp(0, max(S - T, 0))[:, None] + torch.arange(T, device=dev)
     rows = torch.arange(B, device=dev)[:, None]
     scale = math.sqrt(config.head_dim)
@@ -441,12 +451,16 @@ def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
         ck, cv = cache["k"][i], cache["v"][i]                          # [B, S, H, D]
         ck[rows, write] = k_new.to(ck.dtype)
         cv[rows, write] = v_new.to(cv.dtype)
-        # the attention core differs from _block: queries attend the cache
-        scores = torch.einsum("bthd,bshd->bhts", q, ck).to(torch.float32)
-        scores = scores / scale
-        scores = scores.masked_fill(~mask[:, None, :, :], -1e30)
-        probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        attn = torch.einsum("bhts,bshd->bthd", probs, cv)
+        if fresh:
+            attn = attention(q, k_new.to(ck.dtype), v_new.to(cv.dtype),
+                             causal=True, impl="auto")
+        else:
+            # the attention core differs from _block: queries attend the cache
+            scores = torch.einsum("bthd,bshd->bhts", q, ck).to(torch.float32)
+            scores = scores / scale
+            scores = scores.masked_fill(~mask[:, None, :, :], -1e30)
+            probs = torch.softmax(scores, dim=-1).to(q.dtype)
+            attn = torch.einsum("bhts,bshd->bthd", probs, cv)
         x = _attn_residual(layer, x, attn)
         x, _ = _mlp_residual(config, layer, x)
     x = _layer_norm(x, params["ln_f_g"], params["ln_f_b"])

@@ -35,6 +35,7 @@ from torch import nn
 
 from ray_tpu_torch._private.device import DeviceLike, resolve_device
 from ray_tpu_torch.models import common
+from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.xent import chunked_softmax_xent
 from ray_tpu_torch.parallel.moe import (
     MoEConfig,
@@ -420,14 +421,17 @@ def init_kv_cache(config: LlamaConfig, batch: int, max_len: int, dtype=None,
 
 
 def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
-                   start: torch.Tensor, config: LlamaConfig):
+                   start: torch.Tensor, config: LlamaConfig,
+                   fresh: bool = False):
     """Incremental forward with RoPE at absolute positions; the contract of
     ``gpt2.forward_cached``: tokens [B, T], start [B] (absolute position of
     tokens[:, 0]) -> (logits [B, T, V] f32, cache), the new K/V written into
     ``cache`` IN PLACE at start' = min(start, S - T) (JAX's clamped
     ``dynamic_update_slice``) while RoPE and the causal mask use the true
     positions. MoE configs route each token through its top-k experts; the
-    aux loss is dropped here, as in JAX."""
+    aux loss is dropped here, as in JAX. ``fresh=True``: a new prompt at
+    position 0 attends causally to itself through ``attention`` (K1 on the
+    card), as in ``gpt2.forward_cached``."""
     B, T = tokens.shape
     S = cache["k"].shape[2]
     KV, g, D = config.num_kv_heads, config.q_per_kv, config.head_dim
@@ -436,8 +440,9 @@ def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
     pos = start[:, None] + torch.arange(T, device=dev)[None, :]       # [B, T]
     x = params["wte"][tokens].to(config.dtype)
 
-    key_pos = torch.arange(S, device=dev)[None, None, :]               # [1, 1, S]
-    mask = key_pos <= pos[:, :, None]                                   # [B, T, S]
+    if not fresh:   # the dense path masks the cache's S slots
+        key_pos = torch.arange(S, device=dev)[None, None, :]           # [1, 1, S]
+        mask = key_pos <= pos[:, :, None]                               # [B, T, S]
     write = start.clamp(0, max(S - T, 0))[:, None] + torch.arange(T, device=dev)
     rows = torch.arange(B, device=dev)[:, None]
     scale = math.sqrt(D)
@@ -448,14 +453,18 @@ def forward_cached(params, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
         ck, cv = cache["k"][i], cache["v"][i]                          # [B, S, KV, D]
         ck[rows, write] = k_new.to(ck.dtype)
         cv[rows, write] = v_new.to(cv.dtype)
-        # GQA over the cache: query heads grouped per kv head
-        qg = q.reshape(B, T, KV, g, D)
-        scores = torch.einsum("btkgd,bskd->bkgts", qg, ck).to(torch.float32)
-        scores = scores / scale
-        scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
-        probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        attn = torch.einsum("bkgts,bskd->btkgd", probs, cv)
-        attn = attn.reshape(B, T, config.num_heads, D)
+        if fresh:
+            attn = attention(q, k_new.to(ck.dtype), v_new.to(cv.dtype),
+                             causal=True, impl="auto")
+        else:
+            # GQA over the cache: query heads grouped per kv head
+            qg = q.reshape(B, T, KV, g, D)
+            scores = torch.einsum("btkgd,bskd->bkgts", qg, ck).to(torch.float32)
+            scores = scores / scale
+            scores = scores.masked_fill(~mask[:, None, None, :, :], -1e30)
+            probs = torch.softmax(scores, dim=-1).to(q.dtype)
+            attn = torch.einsum("bkgts,bskd->btkgd", probs, cv)
+            attn = attn.reshape(B, T, config.num_heads, D)
         x = x + torch.einsum("bthd,hde->bte", attn, layer["wo"].to(x.dtype))
         x, _ = _ffn(config, layer, x)
     x = _rms_norm(x, params["norm_f"], config.rms_eps)

@@ -21,7 +21,8 @@
 // Server: one accept thread feeding a bounded fd queue drained by a fixed
 // worker pool (2x cores, max 32) — bulk transfers keep the blocking write
 // loop, but thread count and per-connection churn stay bounded at the
-// many-node envelope. Arena attachments are cached per arena name.
+// many-node envelope. Arena attachments are cached per arena name until
+// the name is unlinked or the last listener stops (then detached).
 // Serving pins arena objects via rt_obj_get/rt_obj_release; plain segments
 // stay readable through the mmap even if unlinked mid-transfer.
 
@@ -50,6 +51,7 @@
 // Exported by arena_store.cc (linked into this same .so).
 extern "C" {
 int rt_arena_attach(const char* name);
+int rt_arena_detach(int handle);
 void* rt_arena_base(int handle);
 int64_t rt_obj_get(int handle, const char* object_hex, uint64_t* size_out);
 int rt_obj_release(int handle, const char* object_hex);
@@ -136,16 +138,80 @@ bool SendResponse(int fd, uint8_t status, const void* payload, uint64_t len) {
   return true;
 }
 
-std::mutex g_arena_mu;
-std::unordered_map<std::string, int> g_arenas;  // arena name -> handle
+// Arena attachments, cached per arena name. A serving thread holds its
+// entry (users > 0) while it reads the mapping. An entry leaves the cache
+// when its name is found unlinked (the owner closed the arena: its session
+// is over) or when this process stops its last listener; the mapping is
+// detached as soon as it has left the cache and its last user is done, so
+// no attachment outlives the session in a process that keeps running.
+struct ArenaRef {
+  int handle;
+  int users;
+  bool cached;
+};
 
-int ArenaHandle(const std::string& name) {
+std::mutex g_arena_mu;
+std::unordered_map<std::string, ArenaRef*> g_arenas;  // arena name -> entry
+int g_live_listeners = 0;  // under g_arena_mu; see rt_xfer_serve/stop
+
+void DetachIfUnusedLocked(ArenaRef* r) {
+  if (!r->cached && r->users == 0) {
+    rt_arena_detach(r->handle);
+    delete r;
+  }
+}
+
+void UncacheLocked(const std::string& name, ArenaRef* r) {
+  auto it = g_arenas.find(name);
+  if (it != g_arenas.end() && it->second == r) g_arenas.erase(it);
+  r->cached = false;
+  DetachIfUnusedLocked(r);
+}
+
+bool NameLinked(const std::string& name) {
+  int fd = shm_open(name.c_str(), O_RDONLY, 0);
+  if (fd < 0) return errno != ENOENT;
+  close(fd);
+  return true;
+}
+
+// The arena's entry with one more user, or nullptr if it cannot be
+// attached (or was unlinked since it was cached). Pair with ReleaseArena.
+ArenaRef* AcquireArena(const std::string& name) {
   std::lock_guard<std::mutex> lock(g_arena_mu);
   auto it = g_arenas.find(name);
-  if (it != g_arenas.end()) return it->second;
+  if (it != g_arenas.end()) {
+    ArenaRef* r = it->second;
+    if (NameLinked(name)) {
+      r->users++;
+      return r;
+    }
+    UncacheLocked(name, r);
+    return nullptr;
+  }
   int h = rt_arena_attach(name.c_str());
-  if (h >= 0) g_arenas.emplace(name, h);
-  return h;
+  if (h < 0) return nullptr;
+  ArenaRef* r = new ArenaRef{h, 1, true};
+  g_arenas.emplace(name, r);
+  return r;
+}
+
+void ReleaseArena(const std::string& name, ArenaRef* r) {
+  std::lock_guard<std::mutex> lock(g_arena_mu);
+  r->users--;
+  if (g_live_listeners == 0 && r->cached) {
+    // served from the queue after the last listener stopped
+    UncacheLocked(name, r);
+  } else {
+    DetachIfUnusedLocked(r);
+  }
+}
+
+void UncacheAllLocked() {
+  while (!g_arenas.empty()) {
+    auto it = g_arenas.begin();
+    UncacheLocked(it->first, it->second);
+  }
 }
 
 bool ReadName(int fd, std::string* out) {
@@ -181,20 +247,22 @@ void ServeSegment(int fd, const std::string& name) {
 
 void ServeArenaObject(int fd, const std::string& arena,
                       const std::string& hex) {
-  int h = ArenaHandle(arena);
-  if (h < 0) {
+  ArenaRef* r = AcquireArena(arena);
+  if (r == nullptr) {
     SendResponse(fd, 1, nullptr, 0);
     return;
   }
+  int h = r->handle;
   uint64_t size = 0;
   int64_t off = rt_obj_get(h, hex.c_str(), &size);
   if (off < 0) {
     SendResponse(fd, 1, nullptr, 0);
-    return;
+  } else {
+    const char* base = static_cast<const char*>(rt_arena_base(h)) + off;
+    SendResponse(fd, 0, base, size);
+    rt_obj_release(h, hex.c_str());
   }
-  const char* base = static_cast<const char*>(rt_arena_base(h)) + off;
-  SendResponse(fd, 0, base, size);
-  rt_obj_release(h, hex.c_str());
+  ReleaseArena(arena, r);
 }
 
 void HandleConn(int fd) {
@@ -412,6 +480,10 @@ int rt_xfer_serve(const char* host, int port) {
     std::lock_guard<std::mutex> lock(g_serve_mu);
     g_listeners[bound] = fd;
   }
+  {
+    std::lock_guard<std::mutex> lock(g_arena_mu);
+    g_live_listeners++;
+  }
   EnsurePoolStarted();
   std::thread(AcceptLoop, fd).detach();
   return bound;
@@ -419,7 +491,9 @@ int rt_xfer_serve(const char* host, int port) {
 
 // Stop a server started by rt_xfer_serve: closing the listen socket makes
 // the accept loop exit (in-flight transfers finish on their own threads).
-// A worker shutdown must not leave a listener serving this host's shm.
+// A worker shutdown must not leave a listener serving this host's shm, nor
+// an arena mapped: the last stop detaches every cached arena (each once
+// its in-flight transfers are done).
 int rt_xfer_stop(int port) {
   int fd = -1;
   bool last = false;
@@ -433,6 +507,11 @@ int rt_xfer_stop(int port) {
   }
   shutdown(fd, SHUT_RDWR);
   close(fd);
+  {
+    std::lock_guard<std::mutex> lock(g_arena_mu);
+    g_live_listeners--;
+    if (g_live_listeners == 0) UncacheAllLocked();
+  }
   if (last) StopPoolIfIdleListeners();
   return 0;
 }

@@ -34,7 +34,9 @@ Shapes follow [batch, seq, heads, head_dim] throughout; lse is
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from types import SimpleNamespace
 from typing import Optional, Tuple, Union
 
@@ -52,9 +54,35 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Launches of each kernel in this process; each wrapper adds one where it
-# launches its kernel, and nowhere else.
+# launches its kernel, and nowhere else. A wrapper called while its thread
+# captures a CUDA graph launches nothing: it adds to that capture's
+# ``recorded`` counts instead, and each replay of the graph, which launches
+# what it recorded, adds those (``count_replay``).
 launches = {"flash_fwd": 0, "flash_fwd_lse": 0, "flash_bwd_dkv": 0,
             "flash_bwd_dq": 0}
+_capturing = threading.local()
+
+
+@contextlib.contextmanager
+def recorded():
+    """Around a CUDA graph capture on this thread: yields the dict of the
+    kernels' launches that the capture records."""
+    counts = _capturing.counts = dict.fromkeys(launches, 0)
+    try:
+        yield counts
+    finally:
+        _capturing.counts = None
+
+
+def count_replay(counts) -> None:
+    """A replay of a graph whose capture recorded ``counts``."""
+    for name, n in counts.items():
+        launches[name] += n
+
+
+def _count(name: str) -> None:
+    counts = getattr(_capturing, "counts", None)
+    (launches if counts is None else counts)[name] += 1
 
 
 def attention_xla(
@@ -378,7 +406,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, with_lse: bool = False):
         )
     name = "flash_fwd_lse" if with_lse else "flash_fwd"
     _raise_on(lib, rc, name)
-    launches[name] += 1
+    _count(name)
     return (o, lse) if with_lse else o
 
 
@@ -396,7 +424,7 @@ def _flash_bwd_launch(kernel: str, pointers, strided, q, k, causal: bool) -> Non
             _DTYPE_CODES[q.dtype], stream,
         )
     _raise_on(lib, rc, kernel)
-    launches[kernel] += 1
+    _count(kernel)
 
 
 def _flash_bwd_dq_launch(q, k, v, out, do, lse, dq, delta, causal: bool) -> None:

@@ -12,6 +12,15 @@ alike from the broadcast output counts once.
 The reference's ``lax.scan`` computes every stage on every step and masks
 the bubble steps; here a stage computes and communicates only on its own
 steps ([s, s + M)), which gives the same values.
+
+The reference's microbatch i is rows [i B/M, (i+1) B/M) of the whole
+batch. A rank of a batch-sharded mesh (data x fsdp) holds its own rows of
+the batch, so chunking them gives microbatches of other rows. Layers that
+treat each row alone do not see the difference; the MoE layer's capacity
+queues rank a microbatch's tokens against each other, so with
+``collect_aux`` (the MoE models' loop) each rank first takes its shard of
+every one of the reference's microbatches, and gives the output back in
+its own rows: one all-to-all each way over each batch axis.
 """
 from __future__ import annotations
 
@@ -19,8 +28,47 @@ from typing import Any, Callable
 
 import torch
 
-from ray_tpu_torch.parallel._collectives import all_reduce, axis_group, hop
+from ray_tpu_torch.parallel._collectives import (
+    all_reduce,
+    all_to_all,
+    axis_group,
+    hop,
+)
 from ray_tpu_torch.parallel.mesh import axis_size
+
+# The batch-sharding axes, outer first: rows are sharded data-major over
+# data x fsdp (``sharding.shard_batch_spec``).
+_BATCH_AXES = ("data", "fsdp")
+
+
+def _regroup(x: torch.Tensor, mesh, M: int, back: bool = False):
+    """This rank's rows ``x`` -> its shard of each of the reference's M
+    microbatches, in microbatch order (``back``: the inverse).
+
+    With G = data x fsdp ranks and r = M / G, rank g's rows are M parts of
+    B/(MG) rows; its part c1 G + h is rank h's shard of microbatch g r + c1.
+    As [r, data, fsdp, part] the parts for each rank lie on the two batch
+    axes, and an all-to-all over each exchanges them; the inverse repeats
+    the same all-to-alls."""
+    sizes = [axis_size(mesh, a) for a in _BATCH_AXES]
+    G = sizes[0] * sizes[1]
+    if G == 1:
+        return x
+    if M % G:
+        raise ValueError(f"the MoE pipeline needs microbatches {M} divisible "
+                         f"by the batch shards data x fsdp = {G}")
+    rest = tuple(x.shape[1:])
+    r, part = M // G, x.shape[0] // M
+    if back:   # rows (g, c1) of every source rank, per microbatch order
+        y = x.reshape((*sizes, r, part) + rest)
+    else:
+        y = x.reshape((r, *sizes, part) + rest).movedim(0, 2)
+    for dim, axis in enumerate(_BATCH_AXES):
+        if sizes[dim] > 1:
+            y = all_to_all(y, mesh, axis, dim, dim)
+    if back:
+        y = y.movedim(2, 0)
+    return y.reshape(x.shape)
 
 
 def pipeline_apply(stage_params: Any, x: torch.Tensor, *, mesh,
@@ -41,13 +89,17 @@ def pipeline_apply(stage_params: Any, x: torch.Tensor, *, mesh,
     s computes at steps [s, s + M), and the last stage's result for
     microbatch i appears at step i + S - 1. Every stage returns the whole
     output. With one stage (or no mesh) it is apply_stage(stage_params,
-    x)."""
+    x). With ``collect_aux`` on a batch-sharded mesh, each microbatch is
+    this rank's shard of the reference's microbatch of the whole batch
+    (module docstring)."""
     S = axis_size(mesh, axis)
     if S == 1:
         return apply_stage(stage_params, x)
     M = num_microbatches
     if x.shape[0] % M != 0:
         raise ValueError(f"batch {x.shape[0]} not divisible by microbatches {M}")
+    if collect_aux:
+        x = _regroup(x, mesh, M)
     group, S, s = axis_group(mesh, axis)
     mbs = x.chunk(M, 0)
     outs, sinks, recv = [], [], None
@@ -75,5 +127,6 @@ def pipeline_apply(stage_params: Any, x: torch.Tensor, *, mesh,
         out = out + t.sum()
     out = all_reduce(out, mesh, axis)
     if collect_aux:
-        return out, all_reduce(aux_acc, mesh, axis) / M
+        return (_regroup(out, mesh, M, back=True),
+                all_reduce(aux_acc, mesh, axis) / M)
     return out

@@ -10,7 +10,7 @@ from ray_tpu_torch._private.worker import get_global_worker
 # The static-analysis gate (the reference's ``lint`` package) is not
 # ported yet.
 _LINT_TODO = ("RAY_TPU_TORCH_LINT is set, but lint is not ported to "
-              "ray_tpu_torch yet (ROADMAP queue 1 item 8)")
+              "ray_tpu_torch yet (ROADMAP queue 1 item 12)")
 
 # Option names accepted by .options() / @remote(**...), mirroring the
 # reference's option surface (``python/ray/_private/ray_option_utils.py``).

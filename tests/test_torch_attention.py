@@ -111,6 +111,31 @@ def test_dispatcher_on_cpu_tensors():
         tattn.attention(q, k, v, impl="ring")
 
 
+def test_launch_counts_move_from_capture_to_replay():
+    """A kernel's wrapper called while its thread captures a CUDA graph
+    launches nothing: it adds to the capture's record, not to the launch
+    counts, and each replay adds the record. Another thread's launches
+    during the capture count as launches."""
+    import threading
+
+    before = dict(tattn.launches)
+    with tattn.recorded() as rec:
+        tattn._count("flash_fwd")
+        tattn._count("flash_fwd")
+        other = threading.Thread(target=tattn._count, args=("flash_bwd_dq",))
+        other.start()
+        other.join(timeout=10)
+    assert rec == {"flash_fwd": 2, "flash_fwd_lse": 0, "flash_bwd_dkv": 0,
+                   "flash_bwd_dq": 0}
+    assert tattn.launches == dict(before, flash_bwd_dq=before["flash_bwd_dq"] + 1)
+    for _ in range(3):
+        tattn.count_replay(rec)
+    tattn._count("flash_fwd")   # after the capture: a launch again
+    assert tattn.launches["flash_fwd"] == before["flash_fwd"] + 3 * 2 + 1
+    for name in tattn.launches:
+        tattn.launches[name] = before[name]
+
+
 def test_flash_ref_bf16_follows_precision_contract():
     """bf16 inputs: the blockwise version casts P to bf16 before PV and
     returns bf16. Bound 2e-2 against the f32 dense version on the same

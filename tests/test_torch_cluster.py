@@ -244,3 +244,65 @@ def test_node_processes(session):
     assert len(nodes) == 2
     assert all(n == ([], "") for n in nodes), nodes
     assert session["alive_after"] == []
+
+
+_PULL_SCRIPT = """
+import gc, os
+import numpy as np
+import ray_tpu_torch as rt
+from ray_tpu_torch._private.worker import get_global_worker
+
+def mapped(name):
+    with open("/proc/self/maps") as f:
+        return [l.split()[-2] if l.rstrip().endswith("(deleted)")
+                else l.split()[-1] for l in f if name in l]
+
+@rt.remote
+def pull(meta, hex_):
+    # what a node on another host does: fetch the object's bytes from the
+    # owner's transfer server into a segment of its own
+    import os
+    from multiprocessing import shared_memory
+    from ray_tpu_torch.native import xfer
+    dest = f"rtpull_{os.getpid()}_{hex_[:12]}"
+    got = xfer.fetch_to_segment(meta["xfer"][0], meta["xfer"][1], meta,
+                                hex_, dest, 30.0)
+    if got is not None:
+        shared_memory.SharedMemory(name=dest).unlink()
+    return None if got is None else got["size"]
+
+rt.init(num_cpus=1, num_nodes=1)
+name = f"rt_arena_{rt._internal_cluster().gcs_addr[1]}_{os.getuid()}"
+ref = rt.put(np.arange(1 << 20, dtype=np.float32))
+kind, meta = get_global_worker().memory_store[ref.hex()]
+out = {"meta": sorted(meta),
+       "in_arena": meta.get("arena", "").lstrip("/") == name}
+out["pulled"] = rt.get(pull.remote(meta, ref.hex()), timeout=60)
+out["before"] = len(mapped(name))
+del ref
+rt.shutdown()
+gc.collect()
+out["after"] = mapped(name)
+print(out)
+"""
+
+
+def test_transfer_server_unmaps_arena_at_shutdown():
+    """A node pulls an arena object from the driver's transfer server, as
+    a node on another host would; after the driver's shutdown() its process
+    maps no part of the session's arena (the server's attachment is
+    detached with its last listener). In a subprocess: the mappings are the
+    process's own."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, RT_ARENA_BYTES=str(64 << 20))
+    proc = subprocess.run([sys.executable, "-c", _PULL_SCRIPT], cwd=repo,
+                          env=env, capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = eval(proc.stdout.strip().splitlines()[-1])
+    assert out["in_arena"] and "xfer" in out["meta"], out
+    assert out["pulled"] and out["pulled"] > 4 << 20, out
+    assert out["before"] >= 2, out    # the store's mapping and the server's
+    assert out["after"] == [], out

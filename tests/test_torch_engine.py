@@ -391,6 +391,12 @@ _PORT_MODULES = [
     "ray_tpu_torch.train.collective", "ray_tpu_torch.train.worker_group",
     "ray_tpu_torch.train.controller", "ray_tpu_torch.train.trainer",
     "ray_tpu_torch.train.torch",
+    # Serve and placement groups
+    "ray_tpu_torch.util.placement_group", "ray_tpu_torch.serve",
+    "ray_tpu_torch.serve.deployment", "ray_tpu_torch.serve.multiplex",
+    "ray_tpu_torch.serve.replica", "ray_tpu_torch.serve.handle",
+    "ray_tpu_torch.serve.controller", "ray_tpu_torch.serve.http_proxy",
+    "ray_tpu_torch.serve.grpc_proxy", "ray_tpu_torch.serve.local_testing",
 ]
 
 

@@ -42,6 +42,7 @@ from ray_tpu_torch.train.step import (
 )
 from tests.test_torch_ranks import (
     MOE,
+    MOE_DROP,
     N,
     PIPE,
     RULES,
@@ -64,7 +65,8 @@ def _jcfg(family, kw):
     if family == "llama":
         return dataclasses.replace(jllama.LlamaConfig(**kw),
                                    dtype=jnp.float32)
-    moe = JMoEConfig(**MOE) if family == "gpt2-moe" else None
+    moe = {"gpt2-moe": JMoEConfig(**MOE),
+           "gpt2-moe-drop": JMoEConfig(**MOE_DROP)}.get(family)
     return jgpt2.GPT2Config(**kw, moe=moe, dtype=jnp.float32)
 
 
@@ -188,6 +190,15 @@ def _jax_refs(data):
     ref["moe_pipe_loss"] = jax.jit(lambda p, b: jgpt2.loss_fn(
         p, b, cfg, mesh, pipeline_microbatches=2))(data["gpt2-moe-pipe"],
                                                    batch)
+    mesh = JMeshConfig(data=2, stage=2).build(jax.devices()[:N])
+    cfg = _jcfg("gpt2-moe-drop", PIPE)
+    ref["moe_drop_logits"], ref["moe_drop_aux"] = jax.jit(
+        lambda p, t: jgpt2.forward_pipelined(p, t, cfg, mesh,
+                                             num_microbatches=2))(
+        data["gpt2-moe-pipe"], data["pipe_tokens"])
+    ref["moe_drop_loss"] = jax.jit(lambda p, b: jgpt2.loss_fn(
+        p, b, cfg, mesh, pipeline_microbatches=2))(data["gpt2-moe-pipe"],
+                                                   batch)
     return jax.tree.map(np.asarray, ref)
 
 
@@ -267,6 +278,26 @@ def test_moe_expert_axis_matches_jax(results):
             np.testing.assert_allclose(r[key], ref[key], atol=2e-4,
                                        rtol=2e-4, err_msg=key)
         assert float(r["moe_aux"]) > 0 and float(r["moe_pipe_aux"]) > 0
+
+
+def test_moe_pipeline_over_data_matches_jax(results):
+    """A MoE GPT-2 through the GPipe loop on data=2 x stage=2 (M=2), its
+    capacity queues half the routed load so that tokens are dropped: each
+    data rank's logits (its rows of the batch), the aux loss and the loss
+    against JAX's on its mesh within 2e-4. The capacity queues rank the
+    tokens of a microbatch, so each rank's microbatch must be its shard of
+    JAX's microbatch of the whole batch."""
+    _, ref, ranks = results
+    rows = ref["moe_drop_logits"].shape[0] // 2
+    for r in ranks:
+        d = r["moe_drop_rank"]
+        np.testing.assert_allclose(
+            r["moe_drop_logits"], ref["moe_drop_logits"][d * rows:
+                                                         (d + 1) * rows],
+            atol=2e-4, rtol=2e-4)
+        for key in ("moe_drop_aux", "moe_drop_loss"):
+            np.testing.assert_allclose(r[key], ref[key], atol=2e-4,
+                                       rtol=2e-4, err_msg=key)
 
 
 @pytest.mark.parametrize("name", list(TRAIN_CASES))

@@ -28,10 +28,16 @@ from ray_tpu_torch.parallel.ring_attention import (
     ring_attention,
     ulysses_attention,
 )
-from ray_tpu_torch.parallel.mesh import mesh_shape, single_device_mesh
+from ray_tpu_torch.parallel.mesh import (
+    axis_index,
+    mesh_shape,
+    single_device_mesh,
+)
 from ray_tpu_torch.parallel.sharding import (
+    local_shard,
     reduce_grads,
     replicated,
+    shard_batch_spec,
     with_sharding_constraint,
 )
 from ray_tpu_torch.train.step import (
@@ -45,6 +51,8 @@ TINY = dict(vocab_size=512, max_seq_len=128, num_layers=2, num_heads=2,
             embed_dim=64, attention_impl="xla")
 PIPE = dict(TINY, num_layers=4, remat=False)
 MOE = dict(num_experts=4, top_k=2)
+# capacity queues half the size of the routed load: tokens are dropped
+MOE_DROP = dict(MOE, capacity_factor=0.5)
 LLAMA = dict(vocab_size=512, max_seq_len=128, num_layers=2, num_heads=4,
              num_kv_heads=2, embed_dim=64, attention_impl="xla")
 
@@ -71,11 +79,13 @@ ATTN_CASES = [("ring", True, 4), ("ring", False, 4), ("ring", True, 2),
 
 
 def torch_cfg(family, kw):
-    """The port's f32 config of a case ("gpt2", "gpt2-moe" or "llama")."""
+    """The port's f32 config of a case ("gpt2", "gpt2-moe",
+    "gpt2-moe-drop" or "llama")."""
     if family == "llama":
         return dataclasses.replace(tllama.LlamaConfig(**kw),
                                    dtype=torch.float32)
-    moe = MoEConfig(**MOE) if family == "gpt2-moe" else None
+    moe = {"gpt2-moe": MoEConfig(**MOE),
+           "gpt2-moe-drop": MoEConfig(**MOE_DROP)}.get(family)
     return tgpt2.GPT2Config(**kw, moe=moe, dtype=torch.float32)
 
 
@@ -145,6 +155,22 @@ def parallel_body(rank, data):
                 state["params"], toks, cfg, mesh=mesh, num_microbatches=2))
         out["moe_pipe_loss"] = float(tgpt2.loss_fn(
             state["params"], {"tokens": data["train_tokens"]}, cfg,
+            pipeline_microbatches=2, mesh=mesh))
+        # the GPipe loop over data=2 x stage=2 with capacity queues that
+        # drop tokens: each data rank passes its shard of the batch
+        cfg = torch_cfg("gpt2-moe-drop", PIPE)
+        mesh = MeshConfig(data=2, stage=2).build()
+        spec = shard_batch_spec(mesh)
+        state = create_train_state(cfg, opt, params=convert.params_from_numpy(
+            data["gpt2-moe-pipe"], cfg, device="cpu"), mesh=mesh)
+        out["moe_drop_rank"] = axis_index(mesh, "data")
+        out["moe_drop_logits"], out["moe_drop_aux"] = (
+            x.numpy() for x in tgpt2.forward_pipelined(
+                state["params"], local_shard(toks, spec), cfg, mesh=mesh,
+                num_microbatches=2))
+        out["moe_drop_loss"] = float(tgpt2.loss_fn(
+            state["params"], {"tokens": local_shard(torch.from_numpy(
+                data["train_tokens"]).long(), spec)}, cfg,
             pipeline_microbatches=2, mesh=mesh))
 
     # three train steps on each mesh
