@@ -183,6 +183,30 @@ Phases, in order; any failure exits non-zero:
     process (the replicas, the proxy and the controller are threads in
     them) and no shm segment of the session is left; the phase takes at
     most 150 s.
+17. Runtime environments on the card, inside phase 14's session after its
+    numbers and before phase 15 (the session's ``RT_RUNTIME_ENV_DIR`` a
+    directory of its own, ``PIP_NO_INDEX=1``): GPT-2 small (full width and
+    depth, bf16, B=2, T=256) through K1 (a) from a ``num_gpus=1`` task
+    with ``env_vars``, ``working_dir``, ``py_modules`` (the helper module)
+    and a ``worker_process_setup_hook``, beside a plain task: logits
+    bit-equal to the driver's own forward, the env var seen, the cwd the
+    working directory, the hook run once; (b) from a ``pip`` task whose
+    venv installs the helper from a hand-rolled wheel: it runs in the
+    venv's executor child, which sees the card through the node's
+    ``CUDA_VISIBLE_DEVICES``; its host logits bit-equal to the driver's,
+    K1 counted in the child, exactly L a forward; a second call reuses
+    the venv and its child; (c) from an ``ActorPool`` of two
+    ``num_gpus=0.5`` actors holding the model, whose ``map`` answers 8
+    prompts (B=1, T=256) with argmax in order, equal to the driver's, K1
+    read in the actors' process, exactly 8 L. Then the state API
+    (``summarize_tasks``/``list_tasks`` show the phase's tasks finished,
+    ``list_actors`` the two pooled actors alive, ``memory_summary`` the
+    parameters' object) and a ``Queue`` of maxsize 2 carrying the 8
+    prompts from a task to the driver in order. Printed: the first pip
+    call and the venv build in it, the second call, the env task's ms
+    beside the plain task's, the child's forward ms, the pool's prompts/s,
+    the phase's seconds (at most 90). After phase 14's ``shutdown()`` no
+    executor child runs and no venv build lock is held.
 
 The engines' prefill programs attend through K1 (a new prompt attends to
 itself, ``forward_cached(fresh=True)``): K1's wrapper launches it in the
@@ -199,6 +223,9 @@ mesh eval step; phase 14's K1 count lives in node 0's process (its tasks
 and its actor are threads there): its first task sets it to 0, the actor
 reads it after the completions; phase 15's K2-K4 counts live there too,
 set to 0 by a task on node 0 just before ``fit()`` and read by one just
+after it; phase 17's K1 counts are each task's own launches read around
+its forward, in node 0's process and in the executor child, and the
+pool's, set to 0 in the actors' process just before ``map`` and read just
 after it; phase 16's K1 count lives in node 0's process of its own
 session, where the replicas run: a task there sets it to 0 once each app
 is ready and reads it after that app's requests. The engines' programs count
@@ -546,25 +573,49 @@ def build_native():
     return loaded, native.build_failure()
 
 
-def session_leftovers(pids, port, object_hexes):
+def _running(pid):
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            return "zombie" not in f.read()
+    except OSError:
+        return False
+
+
+def session_leftovers(pids, port, object_hexes, renv_root=None):
     """What a runtime session left on this machine, looked up by its own
     names only (other sessions on the host are not this one's fault): its
     node processes still running, and the shm segments its names give: the
     arena of its head port, the rings its processes (``pids`` and this one)
-    made, and the segments of the objects it stored."""
-    alive = []
-    for pid in pids:
-        try:
-            with open(f"/proc/{pid}/status") as f:
-                if "zombie" not in f.read():
-                    alive.append(pid)
-        except OSError:
-            pass
+    made, and the segments of the objects it stored. With ``renv_root``
+    (the session's ``RT_RUNTIME_ENV_DIR``), also the runtime-env executor
+    children still running (a process whose command line names a venv
+    there) beside the node processes, and the venv build locks some
+    process still holds beside the segments."""
+    import fcntl
+
+    alive = [pid for pid in pids if _running(pid)]
     rings = tuple(f"rtring_{pid}_" for pid in (*pids, os.getpid()))
     mine = {f"rt_arena_{port}_{os.getuid()}",
             *(f"rt_{h}" for h in object_hexes)}
     segs = sorted(n for n in os.listdir("/dev/shm")
                   if n in mine or n.startswith(rings))
+    venvs = os.path.join(renv_root or "", "venvs")
+    if renv_root and os.path.isdir(venvs):
+        for pid in filter(str.isdigit, os.listdir("/proc")):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    if venvs.encode() in f.read() and _running(pid):
+                        alive.append(int(pid))
+            except OSError:
+                pass
+        for name in sorted(os.listdir(venvs)):
+            if name.endswith(".lock"):
+                with open(os.path.join(venvs, name), "w") as f:
+                    try:
+                        fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                        fcntl.flock(f, fcntl.LOCK_UN)
+                    except OSError:
+                        segs.append(name)
     return alive, segs
 
 
@@ -576,6 +627,8 @@ def runtime_phase(card, device, model_kw, text, phase12_tok_s, then=None):
     ``then(node_id)``, given the id of the card's node, runs in the same
     session before its shutdown; its result is ``out["then"]``."""
     import dataclasses
+    import shutil
+    import tempfile
 
     import numpy as np
     import torch
@@ -604,6 +657,11 @@ def runtime_phase(card, device, model_kw, text, phase12_tok_s, then=None):
     if arena < want:
         log(f"the arena is capped to {arena} bytes to fit /dev/shm "
             "(no _system_config set)")
+    # phase 17's venvs and staged packages, under a directory of the
+    # session's own; pip installs only the local wheel it is given
+    renv_root = tempfile.mkdtemp(prefix="rt_runtime_env_")
+    os.environ["RT_RUNTIME_ENV_DIR"] = renv_root
+    os.environ["PIP_NO_INDEX"] = "1"
     out = {}
     t0 = time.perf_counter()
     rt.init(num_cpus=4, num_nodes=2)
@@ -810,9 +868,6 @@ def runtime_phase(card, device, model_kw, text, phase12_tok_s, then=None):
             def shutdown(self):
                 self.srv.engine.shutdown()
 
-        import shutil
-        import tempfile
-
         stop_dir = tempfile.mkdtemp(prefix="phase14_")
         stop_path = os.path.join(stop_dir, "stop")
         busy = busy_task.remote(params_ref, cfg, device, stop_path)
@@ -937,15 +992,380 @@ def runtime_phase(card, device, model_kw, text, phase12_tok_s, then=None):
     # (e) nothing of the session is left
     t_end = time.monotonic() + 15
     while time.monotonic() < t_end and any(
-            session_leftovers(pids, port, object_hexes)):
+            session_leftovers(pids, port, object_hexes, renv_root)):
         time.sleep(0.2)
-    left, segs = session_leftovers(pids, port, object_hexes)
-    log(f"after shutdown(): of the session's node processes {pids} "
-        f"{left} run; of its shm segments (arena rt_arena_{port}_"
-        f"{os.getuid()}, rings rtring_<pid>_*, {len(object_hexes)} "
-        f"objects) {segs} remain")
-    check(not left and not segs, f"shutdown() left node processes {left} or "
-          f"shm segments {segs}")
+    left, segs = session_leftovers(pids, port, object_hexes, renv_root)
+    log(f"after shutdown(): of the session's node processes {pids} and "
+        f"runtime-env executor children {left} run; of its shm segments "
+        f"(arena rt_arena_{port}_{os.getuid()}, rings rtring_<pid>_*, "
+        f"{len(object_hexes)} objects) and venv build locks {segs} remain")
+    check(not left and not segs, f"shutdown() left node processes or "
+          f"executor children {left}, or shm segments or venv locks {segs}")
+    shutil.rmtree(renv_root, ignore_errors=True)
+    for var in ("RT_RUNTIME_ENV_DIR", "PIP_NO_INDEX"):
+        os.environ.pop(var, None)
+    return out
+
+
+# Phase 17: runtime environments, the state API, ActorPool and Queue, in
+# phase 14's session before the trainer. The helper that the runtime-env
+# tasks run, shipped once as a py_modules package and once installed from
+# a hand-rolled wheel into a venv (nothing is downloaded: pip runs with
+# PIP_NO_INDEX and the wheel has no dependencies).
+RUNTIME_ENV_PHASE_S = 90.0
+PHASE17_PROMPTS = 8
+PHASE17_HELPER = '''"""GPT-2 small's forward through K1 on the card, for chip_smoke.py's
+phase 17."""
+
+
+def forward(tree, tokens, cfg, device):
+    """Logits of ``tokens`` under ``cfg`` (bf16 activations) from the
+    parameter tree, the K1 launches of this forward in this process, and
+    its milliseconds (synchronized)."""
+    import time
+
+    import torch
+
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.ops import attention as attn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = gpt2.GPT2(cfg, tree, device=device)
+    tokens = tokens.to(device)
+    before = attn.launches["flash_fwd"]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _ = gpt2.forward(model, tokens, cfg)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return logits, attn.launches["flash_fwd"] - before, ms
+'''
+
+
+def phase17_hook():
+    """The runtime-env task's worker-process setup hook: counts its runs
+    in the process's environment."""
+    os.environ["RT_PHASE17_HOOK"] = str(
+        int(os.environ.get("RT_PHASE17_HOOK", "0")) + 1)
+
+
+def write_wheel(directory, name, body, version="0.1"):
+    """A pure-Python wheel of one module ``name`` holding ``body``, built
+    by hand (a zip with its dist-info)."""
+    import zipfile
+
+    whl = os.path.join(directory, f"{name}-{version}-py3-none-any.whl")
+    dist = f"{name}-{version}.dist-info"
+    with zipfile.ZipFile(whl, "w") as z:
+        z.writestr(f"{name}/__init__.py", body)
+        z.writestr(f"{dist}/METADATA", "Metadata-Version: 2.1\n"
+                   f"Name: {name}\nVersion: {version}\n")
+        z.writestr(f"{dist}/WHEEL", "Wheel-Version: 1.0\nGenerator: "
+                   "chip_smoke\nRoot-Is-Purelib: true\nTag: py3-none-any\n")
+        z.writestr(f"{dist}/RECORD", "")
+    return whl
+
+
+def runtime_env_phase(card, device, model_kw):
+    """Phase 17, inside phase 14's session (``RT_RUNTIME_ENV_DIR`` set
+    before its ``init``): GPT-2 small at full width and depth in bf16
+    through K1 (B=2, T=256) from a task with ``env_vars``, ``working_dir``,
+    ``py_modules`` and a setup hook, from a pip-venv task in the executor
+    child, and from a 2-actor ``ActorPool``; then the state API,
+    ``memory_summary`` and a ``Queue``. Returns its numbers and the K1
+    launches of its path."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import common, gpt2
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.util.actor_pool import ActorPool
+    from ray_tpu_torch.util.queue import Queue
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    cfg = gpt2.GPT2Config(**model_kw, attention_impl="flash",
+                          dtype=torch.bfloat16)
+    L = cfg.num_layers
+    out, launches = {}, {}
+    work = tempfile.mkdtemp(prefix="phase17_")
+    helper = os.path.join(work, "rt_phase17_helper")
+    wd = os.path.join(work, "wd")
+    for d in (helper, wd):
+        os.makedirs(d)
+    with open(os.path.join(helper, "__init__.py"), "w") as f:
+        f.write(PHASE17_HELPER)
+    wheel = write_wheel(work, "rt_phase17_wheel", PHASE17_HELPER)
+    host = gpt2.init_params(cfg, torch.Generator().manual_seed(17), "cpu")
+    with torch.no_grad():
+        for n in GPT2_LIVELY:
+            host["blocks"][n].mul_(3.0)
+        host["wpe"].mul_(3.0)
+    tree = {k: ({n: p.detach() for n, p in v.items()}
+                if isinstance(v, dict) else v.detach())
+            for k, v in common.param_tree(host).items()}
+    params_ref = rt.put(tree)
+    B, T = FORWARD_BATCH
+    tokens = torch.randint(0, cfg.vocab_size, (B, T),
+                           generator=torch.Generator().manual_seed(17))
+    own_model = gpt2.GPT2(cfg, tree, device=dev)
+    with torch.no_grad():
+        own, _ = gpt2.forward(own_model, tokens.to(dev), cfg)
+    try:
+        # (1) a task with env_vars, working_dir, py_modules and a setup
+        # hook, beside the same forward in a plain task
+        renv = {"env_vars": {"RT_PHASE17": "on"}, "working_dir": wd,
+                "py_modules": [helper],
+                "worker_process_setup_hook": phase17_hook}
+
+        @rt.remote(num_gpus=1, runtime_env=renv)
+        def env_forward(tree, tokens, cfg, device):
+            import os
+
+            import rt_phase17_helper
+
+            logits, k1, ms = rt_phase17_helper.forward(tree, tokens, cfg,
+                                                       device)
+            return (logits, k1, ms, os.environ.get("RT_PHASE17"),
+                    os.getcwd(), os.environ.get("RT_PHASE17_HOOK"))
+
+        @rt.remote(num_gpus=1)
+        def plain_forward(tree, tokens, cfg, device):
+            import time
+
+            import torch
+
+            from ray_tpu_torch.models import gpt2
+            from ray_tpu_torch.ops import attention as attn
+
+            model = gpt2.GPT2(cfg, tree, device=device)
+            before = attn.launches["flash_fwd"]
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, _ = gpt2.forward(model, tokens.to(device), cfg)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            return (logits, attn.launches["flash_fwd"] - before,
+                    (time.perf_counter() - t0) * 1e3)
+
+        env_s, plain_s, k1_env = [], [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got, k1, _, flag, cwd, hook = rt.get(env_forward.remote(
+                params_ref, tokens, cfg, device))
+            env_s.append(time.perf_counter() - t0)
+            k1_env.append(k1)
+            check(got.device == own.device and torch.equal(got, own),
+                  f"the runtime-env task's logits ({got.device}) differ from "
+                  "the driver's own forward through K1: "
+                  f"{float((got.to(own.device) - own).abs().max()):.3e}")
+            check(flag == "on" and os.path.realpath(cwd) ==
+                  os.path.realpath(wd) and hook == "1",
+                  f"the runtime-env task saw RT_PHASE17={flag!r}, cwd {cwd!r} "
+                  f"(want {wd!r}), its hook ran {hook!r} times (want 1)")
+            t0 = time.perf_counter()
+            got, k1, _ = rt.get(plain_forward.remote(params_ref, tokens, cfg,
+                                                     device))
+            plain_s.append(time.perf_counter() - t0)
+            k1_env.append(k1)
+            check(torch.equal(got, own), "the plain task's logits differ "
+                  "from the driver's own forward")
+        check(k1_env == [L] * 4, f"the env and plain tasks launched K1 "
+              f"{k1_env} times a forward, want {L}")
+        launches["env"] = sum(k1_env)
+        out["env_task_ms"], out["plain_task_ms"] = env_s[1] * 1e3, \
+            plain_s[1] * 1e3
+        log(f"[{card}] phase 17 runtime-env task (env_vars, working_dir, "
+            f"py_modules, setup hook): bf16 logits bit-equal to the "
+            f"driver's; env var seen, cwd the working_dir, the hook ran "
+            f"once; round trip {out['env_task_ms']:.1f} ms warm (first "
+            f"{env_s[0] * 1e3:.1f} ms) beside a plain task's "
+            f"{out['plain_task_ms']:.1f} ms (first {plain_s[0] * 1e3:.1f} "
+            "ms), each building the model from the put parameters")
+
+        # (2) a pip-venv task: the forward in the executor child
+        @rt.remote(num_gpus=1, runtime_env={"pip": [wheel]})
+        def venv_forward(tree, tokens, cfg, device):
+            import os
+            import sys
+
+            import torch
+
+            import ray_tpu_torch
+            import rt_phase17_wheel
+
+            logits, k1, ms = rt_phase17_wheel.forward(tree, tokens, cfg,
+                                                      device)
+            host_logits = logits.cpu()
+            del logits
+            torch.cuda.empty_cache()
+            return (host_logits, k1, ms, os.getpid(), sys.executable,
+                    ray_tpu_torch.__name__,
+                    os.environ.get("CUDA_VISIBLE_DEVICES"))
+
+        calls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            res = rt.get(venv_forward.remote(params_ref, tokens, cfg, device))
+            calls.append((time.perf_counter() - t0, res))
+        own_host = own.cpu()
+        k1_child = []
+        for s, (got, k1, ms, pid, exe, _, cvd) in calls:
+            check(got.device.type == "cpu" and torch.equal(got, own_host),
+                  "the pip-venv child's logits differ from the driver's own "
+                  f"forward: {float((got - own_host).abs().max()):.3e}")
+            check(exe != sys.executable and pid != os.getpid(),
+                  f"the pip-venv task ran in {exe} (pid {pid}), not a venv "
+                  "child")
+            k1_child.append(k1)
+        check(k1_child == [L, L], f"the pip-venv child launched K1 "
+              f"{k1_child} times a forward, want exactly {L}")
+        check(calls[0][1][3] == calls[1][1][3], "the second pip-venv call "
+              "did not reuse the cached venv's child")
+        launches["venv_child"] = sum(k1_child)
+        out["venv_cold_s"], out["venv_warm_s"] = calls[0][0], calls[1][0]
+        out["child_forward_ms"] = calls[1][1][2]
+        # the build alone, from its files' times: ensure_venv opens the
+        # venv's lock file first (venv_root/.<key>.lock, never written)
+        # and writes the ready marker last
+        venv_dir = os.path.dirname(os.path.dirname(calls[0][1][4]))
+        lock = os.path.join(os.path.dirname(venv_dir),
+                            f".{os.path.basename(venv_dir)}.lock")
+        out["venv_build_s"] = (
+            os.path.getmtime(os.path.join(venv_dir, ".rt_ready"))
+            - os.path.getmtime(lock))
+        log(f"[{card}] phase 17 pip-venv task (executor child {calls[0][1][3]}"
+            f" of {calls[0][1][4]}, CUDA_VISIBLE_DEVICES="
+            f"{calls[0][1][6]!r}): logits bit-equal to the driver's, K1 "
+            f"{k1_child} launches counted in the child; first call "
+            f"{out['venv_cold_s']:.2f} s (of it the venv build, python -m "
+            f"venv and pip, {out['venv_build_s']:.2f} s), second "
+            f"{out['venv_warm_s']:.2f} s; the child's forward "
+            f"{out['child_forward_ms']:.2f} ms")
+
+        # (3) an ActorPool of two num_gpus=0.5 actors holding the model
+        @rt.remote(num_gpus=0.5)
+        class PoolWorker:
+            def __init__(self, tree, cfg, device):
+                import torch
+
+                from ray_tpu_torch.models import gpt2
+
+                torch.backends.cuda.matmul.allow_tf32 = False
+                self.model = gpt2.GPT2(cfg, tree, device=device)
+                self.cfg, self.device = cfg, device
+
+            def argmax(self, tokens):
+                import torch
+
+                from ray_tpu_torch.models import gpt2
+
+                with torch.no_grad():
+                    logits, _ = gpt2.forward(
+                        self.model, tokens.to(self.device), self.cfg)
+                return logits.argmax(-1).cpu()
+
+            def launches(self, reset=False):
+                import os
+
+                from ray_tpu_torch.ops import attention as attn
+
+                n = attn.launches["flash_fwd"]
+                if reset:
+                    attn.launches["flash_fwd"] = 0
+                return os.getpid(), n
+
+        prompts = [torch.randint(0, cfg.vocab_size, (1, T),
+                                 generator=torch.Generator().manual_seed(
+                                     170 + i))
+                   for i in range(PHASE17_PROMPTS)]
+        actors = [PoolWorker.remote(params_ref, cfg, device) for _ in range(2)]
+        try:
+            rt.get([a.launches.remote(True) for a in actors])
+            pool = ActorPool(actors)
+            t0 = time.perf_counter()
+            answers = list(pool.map(lambda a, p: a.argmax.remote(p), prompts))
+            pool_s = time.perf_counter() - t0
+            counts = dict(rt.get([a.launches.remote() for a in actors]))
+            listed = state.list_actors(filters=[("class_name", "=",
+                                                 "PoolWorker"),
+                                                ("state", "=", "ALIVE")])
+        finally:
+            for a in actors:
+                rt.kill(a)
+        with torch.no_grad():
+            for i, (p, got) in enumerate(zip(prompts, answers)):
+                want = gpt2.forward(own_model, p.to(dev), cfg)[0].argmax(-1)
+                check(torch.equal(got, want.cpu()),
+                      f"pool answer {i} differs from the driver's argmax")
+        launches["pool"] = sum(counts.values())
+        check(launches["pool"] == L * PHASE17_PROMPTS,
+              f"the pool's actors launched K1 {counts} (by process), want "
+              f"{L} x {PHASE17_PROMPTS} in all")
+        out["pool_prompts_per_s"] = PHASE17_PROMPTS / pool_s
+        log(f"[{card}] phase 17 ActorPool (2 num_gpus=0.5 actors): "
+            f"{PHASE17_PROMPTS} prompts (B=1, T={T}) in order and equal to "
+            f"the driver's argmax, {out['pool_prompts_per_s']:.1f} prompts/s;"
+            f" K1 launches by process {counts}")
+
+        # (4) the state API, memory_summary and a Queue
+        names = ("env_forward", "plain_forward", "venv_forward")
+        t_end = time.monotonic() + 20
+        while True:
+            summary = state.summarize_tasks()["cluster"]["summary"]
+            finished = {n: summary.get(n, {}).get("state_counts", {}).get(
+                "FINISHED", 0) for n in names}
+            if all(v == 2 for v in finished.values()) \
+                    or time.monotonic() > t_end:
+                break
+            time.sleep(0.2)
+        rows = state.list_tasks(filters=[("state", "=", "FINISHED")],
+                                limit=100_000)
+        listed_tasks = {n: sum(r.get("name") == n for r in rows)
+                        for n in names}
+        check(finished == dict.fromkeys(names, 2) and listed_tasks == finished,
+              f"the state API shows the phase's tasks finished "
+              f"{finished} (list_tasks {listed_tasks}), want 2 each")
+        check(len(listed) == 2, f"list_actors shows {len(listed)} pooled "
+              "actors alive, want 2")
+        mem = state.memory_summary()
+        check(any(r["oid"] == params_ref.hex() for r in mem["rows"]),
+              "memory_summary does not list the parameters' object")
+
+        @rt.remote(num_cpus=0)
+        def produce(q, items):
+            for x in items:
+                q.put(x, timeout=60)
+            return len(items)
+
+        q = Queue(maxsize=2)
+        try:
+            done = produce.remote(q, prompts)
+            carried = [q.get(timeout=60) for _ in prompts]
+            check(rt.get(done, timeout=60) == len(prompts) and all(
+                torch.equal(a, b) for a, b in zip(carried, prompts)),
+                "the Queue did not carry the prompts in order")
+        finally:
+            q.shutdown()
+        log(f"phase 17 state API: summarize_tasks/list_tasks FINISHED "
+            f"{finished}, list_actors 2 PoolWorker ALIVE, memory_summary "
+            f"lists the parameters' object ({mem['totals']['objects']} "
+            f"objects); a Queue of maxsize 2 carried {len(prompts)} prompts "
+            "from a task in order")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        del own_model
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{card}] phase 17: {out['phase_s']:.1f} s (limit "
+        f"{RUNTIME_ENV_PHASE_S:g}); K1 launches on its path {launches}")
+    check(out["phase_s"] <= RUNTIME_ENV_PHASE_S,
+          f"phase 17 took {out['phase_s']:.1f} s")
     return out
 
 
@@ -2901,19 +3321,26 @@ def main() -> int:
         _, metrics = gtrain["step"](st, {"tokens": tokens})
         return float(metrics["loss"])
 
-    def trainer(node_id):
+    def runtime_env_then_trainer(node_id):
         phase_done(14)
         release()
-        return trainer_phase(card, DEVICE, node_id, MODEL, TRAIN_BATCH,
-                             reference_loss,
-                             float(np.median(gtrain["step_s"][1:])) * 1e3)
+        renv = runtime_env_phase(card, DEVICE, MODEL)
+        phase_done(17)
+        release()
+        return renv, trainer_phase(
+            card, DEVICE, node_id, MODEL, TRAIN_BATCH, reference_loss,
+            float(np.median(gtrain["step_s"][1:])) * 1e3)
 
     runtime = runtime_phase(card, DEVICE, MODEL, text,
-                            concurrent_tokens / concurrent_s, then=trainer)
+                            concurrent_tokens / concurrent_s,
+                            then=runtime_env_then_trainer)
     # the task path's count (the argmax check's launches are apart)
     runtime_launches = runtime["node_launches"]["flash_fwd"]
     check(runtime_launches > 0, "K1 was not launched on the runtime's path")
-    trainer_launches = runtime["then"]["launches"]
+    renv, trained = runtime["then"]
+    renv_launches = sum(renv["launches"].values())
+    check(renv_launches > 0, "K1 was not launched on phase 17's path")
+    trainer_launches = trained["launches"]
     phase_done(15)
 
     # ------------------------------------------------ 16. Serve on the card
@@ -2953,13 +3380,14 @@ def main() -> int:
     row = kernel_row("flash_fwd", 73, "flash_fwd.cu",
                      main_launches + llama_k1_launches + serving_launches
                      + eval_launches + mesh_eval_launches + runtime_launches
-                     + serve_launches,
+                     + renv_launches + serve_launches,
                      case_err("entry"),
                      k1["ms"], k1["plain_ms"], k1["bound"], k1["sdpa_ms"])
     row["launches_by_path"] = {"gpt2": main_launches, "llama": llama_k1_launches,
                                "serving": serving_launches, "eval": eval_launches,
                                "mesh_eval": mesh_eval_launches,
                                "runtime": runtime_launches,
+                               "runtime_env": renv_launches,
                                "serve": serve_launches}
     row["llama1b"] = kernel_row(
         "flash_fwd", 73, "flash_fwd.cu", llama_k1_launches,

@@ -539,11 +539,15 @@ def memory_summary(address: Optional[str] = None,
                    grace_s: float = 5.0) -> Dict[str, Any]:
     """Cluster-wide object/memory summary: the head fans ``memstat_drain``
     to every process, and the reply is joined client-side (works from a
-    driver or a bare CLI via the sync head client). The state API's head
-    client (``util.state``) is not ported yet."""
-    raise NotImplementedError(
-        "memory_summary needs util.state, which is not ported to "
-        "ray_tpu_torch yet (ROADMAP queue 1 item 2)")
+    driver or a bare CLI via the sync head client)."""
+    from ray_tpu_torch.util.state import _call
+
+    raw = _call("memory_summary", {}, address, timeout=60.0)
+    summary = build_summary(raw, grace_s=grace_s)
+    if group_by:
+        summary["groups"] = group_rows(summary["rows"], group_by)
+        summary["group_by"] = group_by
+    return summary
 
 
 # ------------------------------------------------------------- rendering

@@ -84,11 +84,6 @@ def _lineage_bytes_limit() -> int:
 
     return rt_config.lineage_bytes
 
-# runtime_env (env_vars, working_dir, py_modules, pip/uv/conda, containers)
-# is not ported yet.
-_RUNTIME_ENV_TODO = ("runtime_env is not ported to ray_tpu_torch yet "
-                     "(ROADMAP queue 1 item 1)")
-
 _DEBUG_TODO = ("util.debug profiling is not ported to ray_tpu_torch yet "
                "(ROADMAP queue 1 item 6)")
 
@@ -3858,11 +3853,37 @@ class CoreWorker:
             )
 
     def _prepare_runtime_env(self, runtime_env: Optional[dict]) -> dict:
-        """Submit-side runtime-env preparation. Not ported yet: a task or
-        actor that asks for an environment fails at submission."""
-        if runtime_env:
-            raise NotImplementedError(_RUNTIME_ENV_TODO)
-        return {}
+        """Submit-side runtime-env preparation: local py_modules paths are
+        zipped and staged in the head KV once (content-addressed) so every
+        executor fetches the same bits (reference: packaging.py upload)."""
+        if not runtime_env:
+            return {}
+        from ray_tpu_torch._private import runtime_env as renv_mod
+
+        renv_mod.validate(runtime_env)
+        if runtime_env.get("py_modules"):
+            from ray_tpu_torch._private.runtime_env import packaging
+
+            runtime_env = dict(
+                runtime_env,
+                py_modules=packaging.stage_modules(
+                    self, runtime_env["py_modules"]
+                ),
+            )
+        hook = runtime_env.get("worker_process_setup_hook")
+        if callable(hook):
+            # Callables cannot ride the msgpack task header: pickle at
+            # submit time (reference: setup_hook.py exports the hook via
+            # the function table).
+            import cloudpickle
+
+            runtime_env = dict(
+                runtime_env,
+                worker_process_setup_hook={
+                    "__pickled_hook__": cloudpickle.dumps(hook).hex()
+                },
+            )
+        return runtime_env
 
     def _sched_key(self, resources, strategy):
         return (
@@ -5855,13 +5876,210 @@ class CoreWorker:
             except Exception:
                 logger.exception("pressure killer iteration failed")
 
+    def _run_in_env(self, renv: dict, fn, args, kwargs, owner=(),
+                    retriable=False):
+        """Execute a pip/uv task inside its cached venv subprocess
+        (reference: worker-pool-per-runtime-env; here a per-env executor
+        child — see runtime_env/executor.py). Runs on the executor thread;
+        a cold venv build blocks only tasks of the SAME env (per-key lock),
+        and per-task env_vars/working_dir apply inside the child.
+        ``owner``/``retriable`` feed the pressure killer's policy."""
+        from ray_tpu_torch._private import runtime_env as renv_mod
+        from ray_tpu_torch._private.runtime_env import packaging, venv
+        from ray_tpu_torch._private.runtime_env.executor import EnvExecutor
+
+        renv_mod.validate(renv)
+        hook = renv.get("worker_process_setup_hook")
+        if hook:
+            # the hook must run in the process that executes the task —
+            # the env-executor CHILD, not this parent
+            fn = renv_mod.SetupHookTask(hook, fn)
+        use_uv = bool(renv.get("uv"))
+        packages = list(renv.get("uv") or renv.get("pip") or ())
+        entries = []
+        if renv.get("py_modules"):
+            entries = packaging.fetch_modules(self, renv["py_modules"])
+        if packages and (renv.get("conda") or renv.get("image_uri")):
+            raise exc.RayTpuError(
+                "runtime_env cannot combine pip/uv with conda or "
+                "image_uri: the venv packages would be silently ignored "
+                "inside the isolated env (install them via the conda "
+                "spec or bake them into the image)"
+            )
+        if renv.get("image_uri"):
+            # working_dir is baked into the container argv as a bind
+            # mount: it must key the executor cache too.
+            ekey = "img-" + renv["image_uri"] + "@" + (
+                renv.get("working_dir") or ""
+            )
+        elif renv.get("conda"):
+            from ray_tpu_torch._private.runtime_env import conda as conda_mod
+
+            ekey = conda_mod.conda_env_key(renv["conda"])
+        else:
+            ekey = venv.env_key(packages, use_uv)
+        key = (ekey, tuple(entries))
+        with self._env_exec_lock:
+            ex = self._env_executors.get(key)
+            if ex is not None and not ex.alive():
+                ex.close()
+                ex = None
+                self._env_executors.pop(key, None)
+            key_lock = self._env_exec_keylocks.setdefault(
+                key, threading.Lock()
+            )
+        if ex is None:
+            # Build under the PER-KEY lock: a minutes-long pip install of
+            # one env must not stall tasks whose env is already built.
+            with key_lock:
+                with self._env_exec_lock:
+                    ex = self._env_executors.get(key)
+                if ex is None or not ex.alive():
+                    if renv.get("image_uri"):
+                        from ray_tpu_torch._private.runtime_env import (
+                            conda as conda_mod,
+                        )
+                        from ray_tpu_torch._private.runtime_env import (
+                            executor as exec_mod,
+                        )
+
+                        argv = conda_mod.container_argv(
+                            renv["image_uri"], exec_mod._CHILD_SRC,
+                            path_entries=entries,
+                            working_dir=renv.get("working_dir"),
+                        )
+                        ex = EnvExecutor(
+                            "container", path_entries=entries, argv=argv,
+                            inherit_parent_site=False,
+                        )
+                    elif renv.get("conda"):
+                        from ray_tpu_torch._private.runtime_env import (
+                            conda as conda_mod,
+                        )
+
+                        python = conda_mod.ensure_conda_env(renv["conda"])
+                        # The env is isolated (no host-site fallback);
+                        # cloudpickle — the one package the child loop
+                        # needs before user code — is seeded into the env
+                        # at creation (conda.py _seed_cloudpickle).
+                        ex = EnvExecutor(
+                            python, path_entries=entries,
+                            inherit_parent_site=False,
+                        )
+                    else:
+                        python = venv.ensure_venv(packages, use_uv=use_uv)
+                        ex = EnvExecutor(python, path_entries=entries)
+                    with self._env_exec_lock:
+                        self._env_executors[key] = ex
+        # task_info feeds the pressure killer: only the task ACTUALLY
+        # executing inside the child (published under the executor's lock)
+        # is a victim candidate, never one queued behind it (reference:
+        # worker_killing_policy_group_by_owner.h operates on running
+        # workers).
+        tid = getattr(self.current_task_id, "value", None)
+        task_info = {
+            "tid": tid.hex() if tid is not None else "",
+            "owner": tuple(owner or ()),
+            "started": time.monotonic(),
+            "retriable": bool(retriable),
+        }
+        try:
+            ok, result = ex.run(
+                fn, args, kwargs,
+                env_vars=renv.get("env_vars"),
+                cwd=renv.get("working_dir"),
+                task_info=task_info,
+            )
+        except RuntimeError as e:
+            with self._env_exec_lock:
+                if self._env_executors.get(key) is ex:
+                    self._env_executors.pop(key, None)
+            ex.close()
+            if getattr(ex, "pressure_killed", False):
+                # Retriable with node-avoid: the owner backs off this node
+                # and resubmits elsewhere (same path as admission OOM).
+                # Tasks queued behind the killed one land here too — they
+                # were headed for a pressured node either way.
+                raise exc.OutOfMemoryError(
+                    f"task killed under memory pressure on node "
+                    f"{self.node_id[:8]} ({self._memory_monitor.usage_string()})"
+                )
+            raise exc.WorkerCrashedError(f"runtime-env executor: {e}")
+        if ok:
+            return True, result
+        err_repr, tb = result
+        return False, (exc.TaskError(err_repr, tb), tb)
+    # Serializes tasks that use working_dir: cwd is process-global, so two
+    # concurrent chdir'ing tasks would corrupt each other's view (and the
+    # restore). Tasks without working_dir never touch cwd and skip the lock.
+    _cwd_lock = threading.Lock()
+
+    def _run_setup_hook(self, renv: dict):
+        """worker_process_setup_hook (reference:
+        ``_private/runtime_env/setup_hook.py``): run ONCE per worker
+        process before the first task using the env executes. Failures
+        propagate — a task must not run half-initialized. Runs AFTER the
+        rest of the env (env_vars/py_modules/working_dir) is in place so
+        hooks may depend on it."""
+        hook = (renv or {}).get("worker_process_setup_hook")
+        if not hook:
+            return
+        from ray_tpu_torch._private import runtime_env as renv_mod
+
+        renv_mod.run_setup_hook_once(hook)
+
     def _apply_runtime_env(self, renv: dict):
         """Per-task environment (reference: _private/runtime_env/ plugins).
-        Not ported yet: an empty env applies nothing, any other raises — a
-        task must not silently run without the environment it asked for."""
-        if renv:
-            raise NotImplementedError(_RUNTIME_ENV_TODO)
-        return {}
+        Applied on the executor thread: env_vars, working_dir (cwd is
+        process-global, so working_dir tasks serialize on _cwd_lock),
+        py_modules (content-addressed fetch + sys.path). pip/uv route the
+        EXECUTION into a venv subprocess (see _run_in_env); unknown plugins
+        raise — a task must not silently run without the environment it
+        asked for."""
+        from ray_tpu_torch._private import runtime_env as renv_mod
+
+        renv = renv or {}
+        renv_mod.validate(renv)
+        inserted = []
+        if renv.get("py_modules"):
+            from ray_tpu_torch._private.runtime_env import packaging
+
+            entries = packaging.fetch_modules(self, renv["py_modules"])
+            import sys as _sys
+
+            for e in reversed(entries):
+                # scoped per task (removed in _restore_env): permanent
+                # entries would let an older staged version shadow a newer
+                # one on re-staged module updates
+                if e not in _sys.path:
+                    _sys.path.insert(0, e)
+                    inserted.append(e)
+        envs = renv.get("env_vars") or {}
+        old = {}
+        for k, v in envs.items():
+            old[k] = os.environ.get(k)
+            os.environ[k] = str(v)
+        cwd = None
+        locked = False
+        if renv.get("working_dir"):
+            self._cwd_lock.acquire()
+            locked = True
+            cwd = os.getcwd()
+            try:
+                os.chdir(renv["working_dir"])
+            except OSError as e:
+                logger.warning("working_dir %r: %s", renv["working_dir"], e)
+                cwd = None
+        state = {"env": old, "cwd": cwd, "locked": locked,
+                 "sys_path": inserted}
+        try:
+            # after env_vars/py_modules/working_dir: hooks may import
+            # staged modules or read the env they were shipped with
+            self._run_setup_hook(renv)
+        except BaseException:
+            self._restore_env(state)
+            raise
+        return state
 
     def _restore_env(self, old):
         if old.get("sys_path"):
@@ -6164,6 +6382,25 @@ class CoreWorker:
             self.current_task_id.value = tid
             self.current_actor_id.value = None
             self.put_counter.value = 0
+            # Key PRESENCE routes, not truthiness: {"pip": []} explicitly
+            # asks for venv isolation (a subprocess executor) even with
+            # nothing to install.
+            if any(k in renv for k in ("pip", "uv", "conda", "image_uri")):
+                # Whole env (incl. env_vars/working_dir/py_modules) applies
+                # inside the venv/conda/container child — the parent
+                # process must stay unpolluted.
+                try:
+                    with tracing_helper.span(
+                        f"task::{h.get('name', 'task')}", h.get("trace"),
+                        {"task_id": h["tid"], "node_id": self.node_id},
+                    ):
+                        return self._run_in_env(
+                            renv, fn, args, kwargs,
+                            owner=tuple(h.get("owner") or ()),
+                            retriable=h.get("retries", 0) > 0,
+                        )
+                except Exception as e:
+                    return False, (e, traceback.format_exc())
             try:
                 old = self._apply_runtime_env(renv)
             except Exception as e:
@@ -6596,6 +6833,17 @@ class CoreWorker:
 
         def construct():
             renv = spec.get("renv") or {}
+            if any(k in renv for k in ("pip", "uv", "conda", "image_uri")):
+                return False, (
+                    exc.RayTpuError(
+                        "actors with pip/uv/conda/image_uri runtime envs "
+                        "are not supported: "
+                        "the actor would live outside the node process "
+                        "that holds the card's CUDA context "
+                        "(use py_modules, or run a task instead)"
+                    ),
+                    "",
+                )
             try:
                 old = self._apply_runtime_env(renv)
             except Exception as e:

@@ -139,6 +139,38 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
     return _AllToAll.apply(x, group, n, split_dim, concat_dim)
 
 
+def _all_to_all_rows(x: torch.Tensor, group, send: Sequence[int],
+                     recv: Sequence[int]) -> torch.Tensor:
+    out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x.contiguous(), list(recv), list(send),
+                           group=group)
+    return out
+
+
+class _AllToAllRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, send, recv):
+        ctx.args = (group, recv, send)
+        return _all_to_all_rows(x, group, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all_rows(g, *ctx.args), None, None, None
+
+
+def all_to_all_rows(x: torch.Tensor, mesh, axis: str, send: Sequence[int],
+                    recv: Sequence[int]) -> torch.Tensor:
+    """Rows of ``x`` to the members of ``axis`` in uneven parts: the first
+    ``send[0]`` rows to member 0, the next ``send[1]`` to member 1, and so
+    on; returns the rows received, ``recv[j]`` of them from member j, in
+    member order (``all_to_all_single`` with split sizes). The backward is
+    the inverse exchange."""
+    group, n, _ = axis_group(mesh, axis)
+    if n == 1:
+        return x
+    return _AllToAllRows.apply(x, group, tuple(send), tuple(recv))
+
+
 class _Hop(torch.autograd.Function):
     """One step of a pipeline: send ``y`` to the next member and/or receive
     a tensor of ``like``'s shape from the previous one; the backward sends

@@ -20,7 +20,8 @@ treat each row alone do not see the difference; the MoE layer's capacity
 queues rank a microbatch's tokens against each other, so with
 ``collect_aux`` (the MoE models' loop) each rank first takes its shard of
 every one of the reference's microbatches, and gives the output back in
-its own rows: one all-to-all each way over each batch axis.
+its own rows: one all-to-all each way over each batch axis, with uneven
+parts where the microbatches are no multiple of data x fsdp.
 """
 from __future__ import annotations
 
@@ -30,45 +31,81 @@ import torch
 
 from ray_tpu_torch.parallel._collectives import (
     all_reduce,
-    all_to_all,
+    all_to_all_rows,
     axis_group,
     hop,
 )
-from ray_tpu_torch.parallel.mesh import axis_size
+from ray_tpu_torch.parallel.mesh import axis_index, axis_size
 
 # The batch-sharding axes, outer first: rows are sharded data-major over
 # data x fsdp (``sharding.shard_batch_spec``).
 _BATCH_AXES = ("data", "fsdp")
 
 
+def _layouts(B: int, M: int, G: int):
+    """The global rows each of the G batch ranks holds: its own (the batch
+    sharded data-major, B/G rows each) and its shard of each of the
+    reference's M microbatches (rank h's B/(MG) rows of every microbatch
+    of B/M rows), in microbatch order."""
+    own = [list(range(g * B // G, (g + 1) * B // G)) for g in range(G)]
+    mb, shard = B // M, B // (M * G)
+    mine = [[R for R in range(B) if R % mb // shard == h] for h in range(G)]
+    return own, mine
+
+
+def _plan(B: int, M: int, sizes: tuple, me: int, back: bool):
+    """How rank ``me`` moves its rows from its own layout to its microbatch
+    shards (``back``: the inverse): one uneven all-to-all per batch axis of
+    size > 1, each a step (axis, order of the rows to send, rows sent to
+    each member, rows received from each member), and the order that puts
+    the rows received last into the target layout. The whole exchange is
+    simulated on row ids, alike on every rank, so no rank asks another
+    what it will receive."""
+    F = sizes[1]
+    own, mine = _layouts(B, M, sizes[0] * F)
+    src, dst = (mine, own) if back else (own, mine)
+    home = {R: h for h, rows in enumerate(dst) for R in rows}
+    held, steps = [list(rows) for rows in src], []
+    for dim, axis in enumerate(_BATCH_AXES):
+        n = sizes[dim]
+        if n == 1:
+            continue
+
+        def member(h, dim=dim):         # the coordinate of rank h on axis
+            return divmod(h, F)[dim]
+
+        def at(h, j, dim=dim):          # rank h with coordinate j on axis
+            c = list(divmod(h, F))
+            c[dim] = j
+            return c[0] * F + c[1]
+
+        out = [sorted(rows, key=lambda R: member(home[R])) for rows in held]
+        order = sorted(range(len(held[me])),
+                       key=lambda i: member(home[held[me][i]]))
+        send = [sum(member(home[R]) == j for R in held[me]) for j in range(n)]
+        parts = [[[R for R in out[at(h, j)] if member(home[R]) == member(h)]
+                  for j in range(n)] for h in range(len(held))]
+        steps.append((axis, order, send, [len(p) for p in parts[me]]))
+        held = [[R for p in ps for R in p] for ps in parts]
+    pos = {R: i for i, R in enumerate(held[me])}
+    return steps, [pos[R] for R in dst[me]]
+
+
 def _regroup(x: torch.Tensor, mesh, M: int, back: bool = False):
     """This rank's rows ``x`` -> its shard of each of the reference's M
-    microbatches, in microbatch order (``back``: the inverse).
-
-    With G = data x fsdp ranks and r = M / G, rank g's rows are M parts of
-    B/(MG) rows; its part c1 G + h is rank h's shard of microbatch g r + c1.
-    As [r, data, fsdp, part] the parts for each rank lie on the two batch
-    axes, and an all-to-all over each exchanges them; the inverse repeats
-    the same all-to-alls."""
-    sizes = [axis_size(mesh, a) for a in _BATCH_AXES]
+    microbatches, in microbatch order (``back``: the inverse). M divides
+    this rank's rows (``pipeline_apply`` checks it), so each of the
+    reference's microbatches splits evenly over the batch ranks, as the MoE
+    layer's gather needs; M itself need not be a multiple of them."""
+    sizes = tuple(axis_size(mesh, a) for a in _BATCH_AXES)
     G = sizes[0] * sizes[1]
     if G == 1:
         return x
-    if M % G:
-        raise ValueError(f"the MoE pipeline needs microbatches {M} divisible "
-                         f"by the batch shards data x fsdp = {G}")
-    rest = tuple(x.shape[1:])
-    r, part = M // G, x.shape[0] // M
-    if back:   # rows (g, c1) of every source rank, per microbatch order
-        y = x.reshape((*sizes, r, part) + rest)
-    else:
-        y = x.reshape((r, *sizes, part) + rest).movedim(0, 2)
-    for dim, axis in enumerate(_BATCH_AXES):
-        if sizes[dim] > 1:
-            y = all_to_all(y, mesh, axis, dim, dim)
-    if back:
-        y = y.movedim(2, 0)
-    return y.reshape(x.shape)
+    me = axis_index(mesh, "data") * sizes[1] + axis_index(mesh, "fsdp")
+    steps, final = _plan(x.shape[0] * G, M, sizes, me, back)
+    for axis, order, send, recv in steps:
+        x = all_to_all_rows(x[order], mesh, axis, send, recv)
+    return x[final]
 
 
 def pipeline_apply(stage_params: Any, x: torch.Tensor, *, mesh,

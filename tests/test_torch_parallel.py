@@ -199,12 +199,22 @@ def _jax_refs(data):
     ref["moe_drop_loss"] = jax.jit(lambda p, b: jgpt2.loss_fn(
         p, b, cfg, mesh, pipeline_microbatches=2))(data["gpt2-moe-pipe"],
                                                    batch)
+    ref["moe_drop3_logits"], ref["moe_drop3_aux"] = jax.jit(
+        lambda p, t: jgpt2.forward_pipelined(p, t, cfg, mesh,
+                                             num_microbatches=3))(
+        data["gpt2-moe-pipe"], data["pipe12_tokens"])
+    ref["moe_drop3_loss"], ref["moe_drop3_grads"] = jax.jit(
+        jax.value_and_grad(lambda p, b: jgpt2.loss_fn(
+            p, b, cfg, mesh, pipeline_microbatches=3)))(
+        data["gpt2-moe-pipe"], {"tokens": data["train12_tokens"]})
     return jax.tree.map(np.asarray, ref)
 
 
 def _results():
     data = {"pipe_tokens": _tokens(8, 32, seed=4),
-            "train_tokens": TRAIN_TOKENS}
+            "train_tokens": TRAIN_TOKENS,
+            "pipe12_tokens": _tokens(12, 32, seed=14),
+            "train12_tokens": _tokens(12, 33, seed=15)}
     for key, family, kw in (("gpt2-pipe", "gpt2", PIPE),
                             ("gpt2-moe", "gpt2-moe", TINY),
                             ("gpt2-moe-pipe", "gpt2-moe", PIPE)):
@@ -298,6 +308,34 @@ def test_moe_pipeline_over_data_matches_jax(results):
         for key in ("moe_drop_aux", "moe_drop_loss"):
             np.testing.assert_allclose(r[key], ref[key], atol=2e-4,
                                        rtol=2e-4, err_msg=key)
+
+
+def test_moe_pipeline_uneven_microbatches_match_jax(results):
+    """The same MoE GPT-2 on data=2 x stage=2 over M=3 microbatches of a
+    batch of 12: 3 is no multiple of data=2, so each rank's shard of
+    every JAX microbatch reaches it through an exchange of uneven parts.
+    Each data rank's logits, the aux loss, the loss and every gradient
+    (back through the inverse exchange) against JAX's on its mesh within
+    2e-4."""
+    _, ref, ranks = results
+    rows = ref["moe_drop3_logits"].shape[0] // 2
+    for r in ranks:
+        d = r["moe_drop_rank"]
+        np.testing.assert_allclose(
+            r["moe_drop3_logits"],
+            ref["moe_drop3_logits"][d * rows:(d + 1) * rows],
+            atol=2e-4, rtol=2e-4)
+        for key in ("moe_drop3_aux", "moe_drop3_loss"):
+            np.testing.assert_allclose(r[key], ref[key], atol=2e-4,
+                                       rtol=2e-4, err_msg=key)
+        for name, grad in r["moe_drop3_grads"].items():
+            want = ref["moe_drop3_grads"]
+            for part in name.split("."):
+                want = want[part]
+            if grad is None:      # a leaf off the MoE model's path
+                grad = np.zeros_like(want)
+            np.testing.assert_allclose(grad, want, atol=2e-4, rtol=2e-4,
+                                       err_msg=name)
 
 
 @pytest.mark.parametrize("name", list(TRAIN_CASES))

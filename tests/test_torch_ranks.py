@@ -172,6 +172,25 @@ def parallel_body(rank, data):
             state["params"], {"tokens": local_shard(torch.from_numpy(
                 data["train_tokens"]).long(), spec)}, cfg,
             pipeline_microbatches=2, mesh=mesh))
+        # the same over M=3 microbatches of a batch of 12: each rank's 6
+        # rows hold 2 of its own shards and 1 of its peer's, so the
+        # exchange moves parts of uneven size
+        out["moe_drop3_logits"], out["moe_drop3_aux"] = (
+            x.numpy() for x in tgpt2.forward_pipelined(
+                state["params"], local_shard(torch.from_numpy(
+                    data["pipe12_tokens"]).long(), spec), cfg, mesh=mesh,
+                num_microbatches=3))
+    # its gradients, through the inverse exchange
+    loss = tgpt2.loss_fn(state["params"], {"tokens": local_shard(
+        torch.from_numpy(data["train12_tokens"]).long(), spec)}, cfg,
+        pipeline_microbatches=3, mesh=mesh)
+    loss.backward()
+    reduce_grads(state["params"])
+    out["moe_drop3_loss"] = float(loss.detach())
+    # (the dense MLP's leaves, unused beside the experts, get none)
+    out["moe_drop3_grads"] = {
+        n: None if p.grad is None else p.grad.full_tensor().numpy()
+        for n, p in state["params"].named_parameters()}
 
     # three train steps on each mesh
     for name, (axes, family, kw, pm) in TRAIN_CASES.items():
